@@ -10,7 +10,7 @@ Phases (any failure exits non-zero):
   1. facts    — card name and power limit, CUDA and nvcc versions, SM
                 count; builds the CUDA kernels (nvcc, sm_90a) and the
                 native host runtime (make -C native) side by side.
-  2. kernels  — K1-K4 at the shapes the main path gives them, on
+  2. kernels  — K1-K6 at the shapes the main path gives them, on
                 adversarial data, each bit-equal to its plain PyTorch
                 version on the card; times the kernel, the plain
                 version and one library call with CUDA events.
@@ -23,12 +23,22 @@ Phases (any failure exits non-zero):
                 keyspaces: diverse 8-byte prefixes (the single-shot K3
                 route alone) and shared 8-byte prefixes (K3, then the
                 K4 tie fallback); every get agrees with a dict oracle.
+  5. shards   — one node's shards on the card: 8 LSMTrees with hash
+                memtables (131072 entries) take 393216 ops each (16 B
+                keys, 64 B values, seed 7); every flush sorts on the
+                card (K5, 3 per shard), then each shard's size-tiered
+                compaction (server/tasks.compact_tree) runs at once and
+                all 8 meet in one coalesced launch (K6).  Outputs
+                SHA-256-equal to the cpu merge of a copy of each
+                shard's tables, a sorted-memtable twin of shard 0
+                flushes the same tables, oracle gets agree.
 
-The main path is four runs — the bench merge, the dense merge and the
-two trees' major compactions.  The kernel launch counters are zeroed
-just before each and read just after it, and reported per run; phase
-2's comparison launches and the traced rerun of the bench merge (run
-after its counts are read) do not count.
+The main path is six runs — the bench merge, the dense merge, the two
+trees' major compactions, the shards' writes with their flushes and the
+shards' compaction.  The kernel launch counters are zeroed just before
+each and read just after it, and reported per run; phase 2's
+comparison launches and the traced rerun of the bench merge (run after
+its counts are read) do not count.
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the contract line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of
@@ -38,6 +48,7 @@ dbeel_tpu.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import json
 import os
@@ -56,6 +67,13 @@ PEAK_OPS_PER_S = 67e12
 # Main-path sizes: bench.py's headline merge and the LSMTree drive.
 BENCH_KEYS = 10_000_000
 LSM_OPS = 500_000
+# The shards phase: one node's shards (one per core) sharing one card,
+# each with a 131072-entry hash memtable and the default compaction
+# factor (dbeel_tpu/config.py:38), 3 memtables of ops per shard.
+SHARDS = 8
+SHARD_CAPACITY = 131072
+SHARD_OPS = 3 * SHARD_CAPACITY
+COMPACTION_FACTOR = 2
 
 
 def log(msg: str) -> None:
@@ -294,6 +312,56 @@ def phase_kernels(torch, np):
         stacks.numel() * 4 + k * p * 5,
         k * p * (k.bit_length() - 1) * 8,
     )
+    del stacks
+
+    # K5 (131072, 9): the flush sort's shape — one row per run (P = 1).
+    # Half the rows are flush rows (random 16 B keys, length 16, cols
+    # 5-7 zero), a quarter tie on all 8 compared words, then random
+    # words and a sentinel tail (a memtable short of a power of two).
+    n = SHARD_CAPACITY
+    st5 = rng.integers(0, 1 << 32, size=(n, 9), dtype=np.uint64)
+    st5 = st5.astype(np.uint32)
+    st5[: n // 2, 4] = 16
+    st5[: n // 2, 5:8] = 0
+    st5[n // 2: 3 * n // 4, :8] = rng.integers(
+        0, 2, size=(n // 4, 8), dtype=np.uint64
+    ).astype(np.uint32)
+    st5[:, 8] = rng.permutation(n).astype(np.uint32)
+    st5[n - 1000:] = 0xFFFFFFFF
+    stack5 = T(st5)
+    levels5 = n.bit_length() - 1
+    record(
+        "K5", "sort_stack_kernel",
+        "dbeel_tpu/ops/bitonic.py:95 (sort_stack_kernel :114)",
+        lambda: B.sort_stack_kernel(stack5),
+        lambda: B.merge_rows_plain(stack5[:, None]),
+        None,  # no single PyTorch call sorts 8 key words lexicographically
+        stack5.numel() * 4 * 2 + n,
+        n // 2 * (levels5 * (levels5 + 1) // 2) * 8,
+    )
+    del stack5
+
+    # K6 (8, 4, 131072, 2): the coalesced batch of the shards phase —
+    # 8 jobs of 3 ragged runs plus the empty run K = 4 pads with.
+    j, k, p = SHARDS, 4, SHARD_CAPACITY
+    c6 = rng.integers(p // 2, p + 1, size=(j, k)).astype(np.uint32)
+    c6[:, 3] = 0
+    pre6 = T(_sorted_runs(np, rng, j, k, p, 2, 1 << 16, c6))
+    cnt6 = T(c6)
+    rows6 = int(c6.sum(axis=1).max())
+    out6 = min(k * p, ((rows6 + 65535) >> 16) << 16)
+    key6 = B._u64(pre6[..., 0]) << 32 | B._u64(pre6[..., 1])
+    key6 = as_signed(key6).reshape(j, -1)
+    stages6 = sum(range(p.bit_length(), (k * p).bit_length()))
+    record(
+        "K6", "merge_runs_prefix_batch_kernel",
+        "dbeel_tpu/ops/bitonic.py:284",
+        lambda: B.merge_runs_prefix_batch_kernel(pre6, cnt6, out6),
+        lambda: B.prefix_top_batch_plain(pre6, cnt6, out6),
+        lambda: torch.sort(key6, dim=1, stable=True),
+        pre6.numel() * 4 + cnt6.numel() * 4 + j * out6 * 4,
+        j * k * p // 2 * stages6 * 3,
+    )
     return results
 
 
@@ -428,16 +496,24 @@ def _main_path_run(fn):
     return out, dict(B.launches)
 
 
-def _profile_merge(torch, strategy, dir_path, indices):
-    """One more merge of the bench cell under torch.profiler: the card's
-    busy time (kernels + copies) against the merge's wall time, and the
-    top device activities.  Runs after the main path's counts are read."""
+@contextlib.contextmanager
+def _device_trace(torch, device):
+    """torch.profiler over the block on a card (yields the profiler);
+    nothing to trace on the CPU (yields None)."""
+    if torch.device(device).type != "cuda":
+        yield None
+        return
     from torch.profiler import ProfilerActivity, profile
 
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
-        _, _, _, wall_s = _merge(strategy, dir_path, indices, 105)
+        yield prof
+
+
+def _device_busy(prof):
+    """The card's busy ms (kernels + copies) in a trace, and its top
+    device activities."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -448,6 +524,16 @@ def _profile_merge(torch, strategy, dir_path, indices):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     top = "; ".join(f"{k[:48]} x{c} {us / 1e3:.2f}ms" for us, k, c in rows[:5])
+    return busy_ms, top
+
+
+def _profile_merge(torch, strategy, dir_path, indices):
+    """One more merge of the bench cell under torch.profiler: the card's
+    busy time (kernels + copies) against the merge's wall time, and the
+    top device activities.  Runs after the main path's counts are read."""
+    with _device_trace(torch, "cuda") as prof:
+        _, _, _, wall_s = _merge(strategy, dir_path, indices, 105)
+    busy_ms, top = _device_busy(prof)
     log(f"profile: merge wall {wall_s * 1e3:.1f}ms (traced), device busy "
         f"{busy_ms:.2f}ms = {busy_ms / (wall_s * 1e3):.4f} of wall; top: {top}")
 
@@ -597,6 +683,272 @@ def phase_lsm(np, n_ops, auto):
 
 
 # ----------------------------------------------------------------------
+# Phase 5: one node's shards on one card
+# ----------------------------------------------------------------------
+
+
+def shard_ops(np, shard, n_ops, seed=7):
+    """One shard's ops: bench.py's widths (16 B random keys, 64 B
+    values), 0.5% overwrites and 0.5% deletes of keys written earlier;
+    (key, value or None for a delete), timestamps 1000 + position."""
+    rng = np.random.default_rng([seed, shard])
+    key_blob = rng.integers(0, 256, size=n_ops * 16, dtype=np.uint8).tobytes()
+    val_blob = rng.integers(0, 256, size=n_ops * 64, dtype=np.uint8).tobytes()
+    u = rng.random(n_ops)
+    earlier = rng.random(n_ops)
+    ops = []
+    for i in range(n_ops):
+        if u[i] < 0.01 and i:
+            key = ops[int(earlier[i] * i)][0]
+        else:
+            key = key_blob[i * 16: i * 16 + 16]
+        value = None if u[i] < 0.005 and i else val_blob[i * 64: i * 64 + 64]
+        ops.append((key, value))
+    return ops
+
+
+async def _write_tree(tree, ops):
+    """Apply ``ops``; a full memtable flushes on the way (a writer runs
+    without yielding until it waits for that flush to start)."""
+    for i, (key, value) in enumerate(ops):
+        if value is None:
+            await tree.delete_with_timestamp(key, 1_000 + i)
+        else:
+            await tree.set_with_timestamp(key, value, 1_000 + i)
+
+
+async def _settle():
+    """Await every task the trees spawned (capacity-triggered flushes)."""
+    others = [t for t in asyncio.all_tasks()
+              if t is not asyncio.current_task()]
+    await asyncio.gather(*others)
+
+
+def _table_digests(d):
+    """SHA-256 of every file of a tree's directory but its WALs."""
+    out = {}
+    for f in sorted(os.listdir(d)):
+        if not f.endswith(".memtable"):
+            with open(os.path.join(d, f), "rb") as fh:
+                out[f] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+async def _drive_shards(torch, np, n_shards, n_ops, capacity, device):
+    from dbeel_tpu_torch.ops import bitonic as B
+    from dbeel_tpu_torch.ops import sort
+    from dbeel_tpu_torch.server.coalescer import (
+        CoalescedDeviceMergeStrategy,
+        CompactionCoalescer,
+    )
+    from dbeel_tpu_torch.server.tasks import compact_tree
+    from dbeel_tpu_torch.storage import LSMTree
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+    from dbeel_tpu_torch.storage.entry import (
+        COMPACT_BLOOM_FILE_EXT, COMPACT_DATA_FILE_EXT, COMPACT_INDEX_FILE_EXT,
+        file_name,
+    )
+    from dbeel_tpu_torch.storage.page_cache import (
+        PageCache, PartitionPageCache,
+    )
+    from dbeel_tpu_torch.storage.sstable import SSTable
+
+    t0 = time.perf_counter()
+    ops = [shard_ops(np, s, n_ops) for s in range(n_shards)]
+    log(f"shards: {n_shards} x {n_ops} ops generated in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # The window is long and max_batch is the shard count, so all the
+    # shards' compactions meet in one launch however long each takes to
+    # load its columns.
+    coalescer = CompactionCoalescer(
+        window_s=120.0, max_batch=n_shards, device=device
+    )
+    cache = PageCache(16384 * n_shards)
+    dirs = [os.path.join(WORK, "shards", f"shard{s}") for s in range(n_shards)]
+    trees = [
+        LSMTree.open_or_create(
+            d, cache=PartitionPageCache(os.path.basename(d), cache),
+            capacity=capacity, memtable_kind="hash", device=device,
+            strategy=CoalescedDeviceMergeStrategy(coalescer),
+        )
+        for d in dirs
+    ]
+
+    # Run shards_flush: every shard's writes, with its flushes.
+    B.reset_launches()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(_write_tree(t, o) for t, o in zip(trees, ops)))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await asyncio.gather(*(t.flush() for t in trees))
+    await _settle()
+    t_flush = time.perf_counter() - t0
+    flush_counts = dict(B.launches)
+    entries = []
+    for d, tree in zip(dirs, trees):
+        entries.append([])
+        for i, _ in tree.sstable_indices_and_sizes():
+            table = SSTable(d, i, None)
+            entries[-1].append(table.entry_count)
+            table.close()
+    log(f"shards write: {n_shards * n_ops} ops over {n_shards} shards in "
+        f"{t_write:.1f}s (2 capacity-triggered flushes per shard "
+        f"overlapped), then the last memtables of all shards flushed "
+        f"together in {t_flush:.2f}s; entries per flushed table "
+        f"{entries}; launches {flush_counts}")
+    for e in entries:
+        if len(e) != 3 or min(e) < sort.DEVICE_THRESHOLD:
+            raise AssertionError(
+                f"want 3 flushes of >= {sort.DEVICE_THRESHOLD} items per "
+                f"shard, got {entries}"
+            )
+
+    # A copy of each shard's flushed tables for the cpu merge and the
+    # sorted-memtable twin.
+    refs = [os.path.join(WORK, "shards_ref", f"shard{s}")
+            for s in range(n_shards)]
+    for d, r in zip(dirs, refs):
+        shutil.copytree(d, r, ignore=shutil.ignore_patterns("*.memtable"))
+
+    # Run shards_compact: the size-tiered decision per shard, all
+    # shards at once, as each shard's compaction loop would ask.
+    B.reset_launches()
+    t0 = time.perf_counter()
+    with _device_trace(torch, device) as prof:
+        await asyncio.gather(
+            *(compact_tree(t, COMPACTION_FACTOR) for t in trees)
+        )
+    t_compact = time.perf_counter() - t0
+    compact_counts = dict(B.launches)
+    if prof is not None:
+        busy_ms, top = _device_busy(prof)
+        log(f"profile: shards compaction wall {t_compact * 1e3:.1f}ms "
+            f"(traced), device busy {busy_ms:.2f}ms = "
+            f"{busy_ms / (t_compact * 1e3):.4f} of wall; top: {top}")
+    stats = coalescer.stats()
+    log(f"shards compact: {t_compact:.2f}s; coalesced batch J="
+        f"{stats['last_batch_jobs']} K={stats['last_batch_k']} "
+        f"P={stats['last_batch_p']} pad_frac={stats['last_pad_frac']}; "
+        f"coalescer {stats}; launches {compact_counts}")
+    if (stats["launches"], stats["jobs_coalesced"]) != (1, n_shards):
+        raise AssertionError(f"want one launch of {n_shards} jobs: {stats}")
+    after = [[i for i, _ in t.sstable_indices_and_sizes()] for t in trees]
+    if any(a != [1] for a in after):
+        raise AssertionError(f"compaction left tables {after}")
+
+    # Each shard's output against the cpu strategy's merge of its copy.
+    t0 = time.perf_counter()
+    cpu = get_strategy("cpu")
+    for s, (d, r) in enumerate(zip(dirs, refs)):
+        srcs = [SSTable(r, i, None) for i in (0, 2, 4)]
+        cpu.merge(srcs, r, 1, None, False, trees[s].bloom_min_size)
+        for t in srcs:
+            t.close()
+        got, want = _table_digests(d), _table_digests(r)
+        for ext, cext in (("data", COMPACT_DATA_FILE_EXT),
+                          ("index", COMPACT_INDEX_FILE_EXT),
+                          ("bloom", COMPACT_BLOOM_FILE_EXT)):
+            if got.get(file_name(1, ext)) != want.get(file_name(1, cext)):
+                raise AssertionError(
+                    f"shard {s}: {ext} differs from the cpu merge"
+                )
+    log(f"shards: every compacted .data/.index/.bloom SHA-256-equal to the "
+        f"cpu merge ({time.perf_counter() - t0:.1f}s)")
+
+    # Seeded oracle gets: every deleted and overwritten key, a sample of
+    # the rest, and absent keys.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    bad = n_gets = 0
+    for tree, shard_o in zip(trees, ops):
+        oracle, counts = {}, {}
+        for key, value in shard_o:
+            oracle[key] = value
+            counts[key] = counts.get(key, 0) + 1
+        probe = [k for k, v in oracle.items() if v is None or counts[k] > 1]
+        keys = list(oracle)
+        probe += [keys[int(i)] for i in
+                  rng.integers(0, len(keys), size=min(16384, len(keys)))]
+        probe += [b"absent-%09d" % i for i in range(1024)]
+        for key in probe:
+            if await tree.get(key) != oracle.get(key):
+                bad += 1
+        n_gets += len(probe)
+    t_get = time.perf_counter() - t0
+    log(f"shards gets: {n_gets} oracle gets in {t_get:.1f}s, "
+        f"mismatches {bad}")
+    for tree in trees:
+        tree.close()
+    if bad:
+        raise AssertionError(f"{bad} shard gets disagree with the oracle")
+
+    # One flush sort alone, end to end (key staging, K5, the copy back
+    # and the host gather), on shard 0's last memtable of items; after
+    # the counted runs.
+    last = {}
+    for i, (key, value) in enumerate(ops[0][-capacity:]):
+        last[key] = (b"" if value is None else value, i)
+    items = list(last.items())
+    t0 = time.perf_counter()
+    ordered = sort.sort_items(items, device)
+    t_sort = time.perf_counter() - t0
+    if ordered != sorted(items, key=lambda kv: kv[0]):
+        raise AssertionError("the flush sort disagrees with sorted()")
+    log(f"shards flush sort: {len(items)} items in {t_sort:.3f}s end to "
+        f"end, alone")
+
+    # The sorted-memtable twin of shard 0: the same ops flush to the
+    # same tables.
+    t0 = time.perf_counter()
+    twin_dir = os.path.join(WORK, "shards", "twin")
+    twin = LSMTree.open_or_create(
+        twin_dir, capacity=capacity, memtable_kind="sorted",
+        strategy=get_strategy("cpu"),
+    )
+    await _write_tree(twin, ops[0])
+    await twin.flush()
+    await _settle()
+    twin.close()
+    twin_digest = _table_digests(twin_dir)
+    flushed = {f: h for f, h in _table_digests(refs[0]).items()
+               if not f.startswith(file_name(1, ""))}
+    log(f"shards twin: sorted-memtable shard 0 rewritten in "
+        f"{time.perf_counter() - t0:.1f}s, flushed tables SHA-256-equal: "
+        f"{twin_digest == flushed}")
+    if twin_digest != flushed:
+        raise AssertionError("hash and sorted memtables flushed differently")
+    return {"shards_flush": flush_counts, "shards_compact": compact_counts}
+
+
+def phase_shards(torch, np, n_shards=SHARDS, n_ops=SHARD_OPS,
+                 capacity=SHARD_CAPACITY, device="cuda"):
+    """Returns the launch counts of the flush and compaction runs."""
+    t0 = time.perf_counter()
+    runs = asyncio.run(
+        _drive_shards(torch, np, n_shards, n_ops, capacity, device)
+    )
+    shutil.rmtree(os.path.join(WORK, "shards"))
+    shutil.rmtree(os.path.join(WORK, "shards_ref"))
+    log(f"shards: {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_shard_launches(runs, n_shards=SHARDS):
+    """Three K5 flushes per shard and nothing else; one K6 launch for
+    the compaction and nothing else."""
+    flush, compact = runs["shards_flush"], runs["shards_compact"]
+    want_flush = {name: 0 for name in flush}
+    want_flush["K5"] = 3 * n_shards
+    want_compact = {name: 0 for name in compact}
+    want_compact["K6"] = 1
+    if flush != want_flush or compact != want_compact:
+        raise AssertionError(
+            f"shards launches: flush {flush} (want {want_flush}), "
+            f"compact {compact} (want {want_compact})"
+        )
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -629,6 +981,9 @@ def main() -> int:
             )
         runs = phase_compaction(torch, np, card, BENCH_KEYS, auto)
         runs.update(phase_lsm(np, LSM_OPS, auto))
+        shard_runs = phase_shards(torch, np)
+        check_shard_launches(shard_runs)
+        runs.update(shard_runs)
         for row in kernels:
             by_run = {run: c[row["name"]] for run, c in runs.items()}
             row["launches"] = sum(by_run.values())

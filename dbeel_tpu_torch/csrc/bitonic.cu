@@ -1,11 +1,14 @@
-// Bitonic merge network over K sorted runs — the compaction merge kernels
-// of dbeel_tpu_torch (K1-K4 of PERF.md), for Hopper (sm_90a).
+// Bitonic merge network over K sorted runs — the compaction merge and
+// flush sort kernels of dbeel_tpu_torch (K1-K6 of PERF.md), for Hopper
+// (sm_90a).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py:
 //   K1 merge_runs_prefix32_packed_batch_kernel  (bitonic.py:235, body :202)
 //   K2 merge_runs_prefix64_packed_batch_kernel  (bitonic.py:251, body :218)
 //   K3 merge_runs_prefix_kernel / _prefix_kernel_from_runs (:153, :379)
 //   K4 merge_runs_perm_kernel                    (bitonic.py:104, :81)
+//   K5 merge_runs_kernel / sort_stack_kernel     (bitonic.py:95, :114)
+//   K6 merge_runs_prefix_batch_kernel            (bitonic.py:284)
 //
 // Data: a flat array of N = J*K*P rows of W u32 words (W = 2, 3, 9),
 // compared lexicographically on the first NCMP words (2, 3, 8).  The
@@ -18,8 +21,11 @@
 // long keys sharing a 16-byte prefix, a length, a ts and a source).  The
 // reversal is fused into the first stage of each level: one thread owns
 // the two pairs (t, h-1-t) a reversal would exchange, so no pass is
-// spent on it.  The batch axis J of K1/K2 needs nothing: runs are
-// pow2-sized, so no level's pair ever crosses a batch boundary.
+// spent on it.  The batch axis J of K1/K2/K6 needs nothing: runs are
+// pow2-sized and the levels stop at K*P rows, so no level's pair ever
+// crosses a batch boundary.  K5's flush sort is the P = 1 case (every
+// row its own run): a one-row run reverses to itself, so its first
+// level's flip is a plain stage.
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
@@ -216,12 +222,16 @@ __global__ void pack_rids_kernel(const uint32_t* rows, uint64_t rows_per_b,
   out[g] = word;
 }
 
-// K3 epilogue: the index column of the first out_rows rows.
+// K3/K6 epilogue: per job j, the index column of its first out_rows
+// rows, out[j, r] = rows[j * K*P + r][W-1].
 template <int W>
-__global__ void top_rows_kernel(const uint32_t* rows, uint64_t out_rows,
+__global__ void top_rows_kernel(const uint32_t* rows, uint64_t rows_per_j,
+                                uint64_t out_rows, uint64_t total,
                                 uint32_t* out) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i < out_rows) out[i] = rows[i * W + W - 1];
+  const uint64_t g = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const uint64_t j = g / out_rows;
+  out[g] = rows[(j * rows_per_j + g % out_rows) * W + W - 1];
 }
 
 // K4 epilogue (_merged_with_same :81-90): index column 8, and same-key
@@ -231,6 +241,24 @@ __global__ void perm_same_kernel(const uint32_t* rows, uint64_t n,
   const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
   if (i >= n) return;
   idx[i] = rows[i * 9 + 8];
+  uint8_t s = 0;
+  if (i > 0) {
+    bool eq = true;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) eq = eq && rows[i * 9 + c] == rows[(i - 1) * 9 + c];
+    s = eq && rows[i * 9 + 4] != kSentinel;
+  }
+  same[i] = s;
+}
+
+// K5 epilogue (_merged_with_same :81-90, whole rows): perm_same_kernel
+// with all 9 words of each sorted row copied out instead of column 8.
+__global__ void rows_same_kernel(const uint32_t* rows, uint64_t n,
+                                 uint32_t* out, uint8_t* same) {
+  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+#pragma unroll
+  for (int c = 0; c < 9; ++c) out[i * 9 + c] = rows[i * 9 + c];
   uint8_t s = 0;
   if (i > 0) {
     bool eq = true;
@@ -321,20 +349,36 @@ int dbeel_bitonic_prefix64_packed(const uint32_t* prefixes,
                             (cudaStream_t)stream);
 }
 
-// K3: prefixes (K,P,2) u32, counts (K,) u32 -> out (out_rows,) u32 packed
-// (run << logP) | pos; work holds K*P*3 u32.
-int dbeel_bitonic_prefix_top(const uint32_t* prefixes, const uint32_t* counts,
-                             uint32_t k, uint32_t p, uint32_t out_rows,
-                             uint32_t* work, uint32_t* out, void* stream) {
+// K6: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out (J, out_rows) u32,
+// per job packed (run << logP) | pos with its iota restarting at 0 (the
+// JAX vmap of K3's body); work holds J*K*P*3 u32.  Bound: bytes (the
+// prefixes read once, J*out_rows words written).  Counted as "K6" by
+// ops/bitonic.py merge_runs_prefix_batch_kernel.
+int dbeel_bitonic_prefix_top_batch(const uint32_t* prefixes,
+                                   const uint32_t* counts, uint32_t j,
+                                   uint32_t k, uint32_t p, uint32_t out_rows,
+                                   uint32_t* work, uint32_t* out,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const uint64_t n = (uint64_t)k * p;
+  const uint64_t n = (uint64_t)j * k * p;
   stage_rows_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(
       prefixes, 2, counts, log2_exact(k), log2_exact(p), n, work);
   cudaError_t err = run_network<3, 3>(work, n, k, p, st);
   if (err != cudaSuccess) return (int)err;
-  top_rows_kernel<3><<<blocks_for(out_rows), kThreads, 0, st>>>(
-      work, out_rows, out);
+  const uint64_t total = (uint64_t)j * out_rows;
+  if (total)
+    top_rows_kernel<3><<<blocks_for(total), kThreads, 0, st>>>(
+        work, (uint64_t)k * p, out_rows, total, out);
   return (int)cudaGetLastError();
+}
+
+// K3: prefixes (K,P,2) u32, counts (K,) u32 -> out (out_rows,) u32 packed
+// (run << logP) | pos: K6 with one job; work holds K*P*3 u32.
+int dbeel_bitonic_prefix_top(const uint32_t* prefixes, const uint32_t* counts,
+                             uint32_t k, uint32_t p, uint32_t out_rows,
+                             uint32_t* work, uint32_t* out, void* stream) {
+  return dbeel_bitonic_prefix_top_batch(prefixes, counts, 1, k, p, out_rows,
+                                        work, out, stream);
 }
 
 // K4: stacks (K,P,9) u32 -> idx (K*P,) u32 + same (K*P,) bytes 0/1;
@@ -349,6 +393,24 @@ int dbeel_bitonic_perm(const uint32_t* stacks, uint32_t k, uint32_t p,
   cudaError_t err = run_network<9, 8>(work, n, k, p, st);
   if (err != cudaSuccess) return (int)err;
   perm_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, idx, same);
+  return (int)cudaGetLastError();
+}
+
+// K5: stacks (K,P,9) u32 -> out (K*P, 9) u32, the whole sorted stack, +
+// same (K*P,) bytes 0/1; work holds K*P*9 u32.  The flush sort
+// (sort_stack_kernel) is K = N rows, P = 1.  Bound: bytes (the stack read
+// once, the sorted stack and the flags written once).  Counted as "K5" by
+// ops/bitonic.py merge_runs_kernel.
+int dbeel_bitonic_merge_rows(const uint32_t* stacks, uint32_t k, uint32_t p,
+                             uint32_t* work, uint32_t* out, uint8_t* same,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint64_t n = (uint64_t)k * p;
+  stage_rows_kernel<9><<<blocks_for(n), kThreads, 0, st>>>(
+      stacks, 9, nullptr, log2_exact(k), log2_exact(p), n, work);
+  cudaError_t err = run_network<9, 8>(work, n, k, p, st);
+  if (err != cudaSuccess) return (int)err;
+  rows_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, out, same);
   return (int)cudaGetLastError();
 }
 

@@ -107,11 +107,19 @@ def lib() -> ctypes.CDLL:
         handle.dbeel_bitonic_perm.argtypes = [
             vp, u32, u32, vp, vp, vp, vp,
         ]
+        handle.dbeel_bitonic_merge_rows.argtypes = [
+            vp, u32, u32, vp, vp, vp, vp,
+        ]
+        handle.dbeel_bitonic_prefix_top_batch.argtypes = [
+            vp, vp, u32, u32, u32, u32, vp, vp, vp,
+        ]
         for fn in (
             handle.dbeel_bitonic_prefix32_packed,
             handle.dbeel_bitonic_prefix64_packed,
             handle.dbeel_bitonic_prefix_top,
             handle.dbeel_bitonic_perm,
+            handle.dbeel_bitonic_merge_rows,
+            handle.dbeel_bitonic_prefix_top_batch,
         ):
             fn.restype = ctypes.c_int
         _lib = handle
@@ -121,3 +129,21 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def resolve_device(device=None):
+    """The ``torch.device`` a device entry point runs on: ``cuda``
+    unless the caller names another.  ``cpu`` selects the kernels'
+    plain PyTorch versions; ``cuda`` without a card raises — there is
+    no silent fallback to the host."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "the kernels' plain PyTorch versions"
+        )
+    return dev

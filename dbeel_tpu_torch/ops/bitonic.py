@@ -5,7 +5,7 @@ construction), so the merge is a bitonic merge network: log2(K) levels,
 each pairing neighbouring runs (the odd one reversed, so the pair is a
 bitonic sequence) and sorting the pair with half-cleaner stages of
 strides P_l, P_l/2, ..., 1.  ``dbeel_tpu/ops/bitonic.py`` runs it as
-jax.jit programs on a TPU; here the four networks on the storage path
+jax.jit programs on a TPU; here the six networks on the storage path
 are CUDA kernels written for Hopper (``csrc/bitonic.cu``):
 
   K1 merge_runs_prefix32_packed_batch_kernel — pipeline, 1-word operand
@@ -13,12 +13,17 @@ are CUDA kernels written for Hopper (``csrc/bitonic.cu``):
   K3 merge_runs_prefix_kernel — single-shot merges (8-byte prefixes)
   K4 merge_runs_perm_kernel — the full 9-column stack (tie fallback,
      device_full)
+  K5 merge_runs_kernel / sort_stack_kernel — the whole sorted stack
+     (the hash memtable's flush sort, ops/sort.py)
+  K6 merge_runs_prefix_batch_kernel — K3 over J independent jobs (the
+     compaction coalescer, server/coalescer.py)
 
 Each wrapper takes int32 tensors that carry uint32 bits (PyTorch has no
 arithmetic on ``torch.uint32``), launches the kernel for a CUDA tensor
 (or raises) and runs the network's plain PyTorch version — the same
 stages in int64 — for a CPU tensor.  ``launches`` counts kernel
-launches per wrapper.
+launches per wrapper; wrappers launch from several threads (flush and
+compaction executors), so the count is taken under a lock.
 
 Row format of the 9-column stack (K4):
   cols 0-3 k0..k3 (16B big-endian key prefix), 4 key_len,
@@ -29,6 +34,7 @@ sort last.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -44,12 +50,19 @@ SENTINEL = np.uint32(0xFFFFFFFF)
 _U32 = 0xFFFFFFFF
 
 # Kernel launches per wrapper since the last reset_launches().
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 # ----------------------------------------------------------------------
@@ -199,17 +212,22 @@ def prefix64_packed_plain(prefixes, counts, pack_bits: int) -> torch.Tensor:
     )
 
 
-def prefix_top_plain(prefixes, counts, out_rows: int) -> torch.Tensor:
-    k, p, _ = prefixes.shape
+def prefix_top_batch_plain(prefixes, counts, out_rows: int) -> torch.Tensor:
+    j, k, p, _ = prefixes.shape
     x = torch.cat(
-        [_u64(prefixes), _index_column(counts[None], k, p)[0][..., None]],
-        dim=2,
+        [_u64(prefixes), _index_column(counts, k, p)[..., None]], dim=3
     )
-    out = _merge_plain(x[None], 3)[0]
-    return _from_u64(out[:out_rows, 2])
+    out = _merge_plain(x, 3)
+    return _from_u64(out[:, :out_rows, 2])
 
 
-def perm_plain(stacks) -> Tuple[torch.Tensor, torch.Tensor]:
+def prefix_top_plain(prefixes, counts, out_rows: int) -> torch.Tensor:
+    return prefix_top_batch_plain(prefixes[None], counts[None], out_rows)[0]
+
+
+def _merged_with_same_plain(stacks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, P, 9) → the sorted (K*P, 9) stack in int64 + same-key flags
+    over cols 0-4, never on a sentinel row (_merged_with_same)."""
     out = _merge_plain(_u64(stacks)[None], NUM_KEY_COLS)[0]
     eq = torch.ones(out.shape[0] - 1, dtype=torch.bool, device=out.device)
     for c in range(NUM_EQ_COLS):
@@ -218,7 +236,17 @@ def perm_plain(stacks) -> Tuple[torch.Tensor, torch.Tensor]:
     same = torch.cat(
         [torch.zeros(1, dtype=torch.bool, device=out.device), eq]
     )
+    return out, same
+
+
+def perm_plain(stacks) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, same = _merged_with_same_plain(stacks)
     return _from_u64(out[:, 8]), same
+
+
+def merge_rows_plain(stacks) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, same = _merged_with_same_plain(stacks)
+    return _from_u64(out), same
 
 
 # ----------------------------------------------------------------------
@@ -259,7 +287,7 @@ def merge_runs_prefix32_packed_batch_kernel(
         work.data_ptr(), out.data_ptr(), _stream(vals),
     )
     _cuda.check(rc, "merge_runs_prefix32_packed_batch_kernel")
-    launches["K1"] += 1
+    _count("K1")
     return out
 
 
@@ -292,7 +320,7 @@ def merge_runs_prefix64_packed_batch_kernel(
         work.data_ptr(), out.data_ptr(), _stream(prefixes),
     )
     _cuda.check(rc, "merge_runs_prefix64_packed_batch_kernel")
-    launches["K2"] += 1
+    _count("K2")
     return out
 
 
@@ -323,7 +351,7 @@ def merge_runs_prefix_kernel(
         work.data_ptr(), out.data_ptr(), _stream(prefixes),
     )
     _cuda.check(rc, "merge_runs_prefix_kernel")
-    launches["K3"] += 1
+    _count("K3")
     return out
 
 
@@ -351,8 +379,81 @@ def merge_runs_perm_kernel(
         same.data_ptr(), _stream(stacks),
     )
     _cuda.check(rc, "merge_runs_perm_kernel")
-    launches["K4"] += 1
+    _count("K4")
     return idx, same
+
+
+def merge_runs_kernel(
+    stacks: torch.Tensor,  # (K, P, 9) u32 bits
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 — replaces dbeel_tpu/ops/bitonic.py:95 merge_runs_kernel:
+    K4's network on the 9-column stack, returning the whole sorted
+    stack (K*P, 9) and the same-key flags (K*P,) bool.  Bound (bytes):
+    the stack read once, the sorted stack and the flags written once —
+    at the flush shape (131072, 1, 9) 4.5 MiB + 4.6 MiB, about 2.8 µs
+    at 3.35 TB/s."""
+    k, p, _ = stacks.shape
+    _check_runs(k, p)
+    _check("stacks", stacks, (k, p, NUM_COLS))
+    if _device_kind(stacks) == "cpu":
+        return merge_rows_plain(stacks)
+    out = torch.empty(
+        (k * p, NUM_COLS), dtype=torch.int32, device=stacks.device
+    )
+    same = torch.empty(k * p, dtype=torch.bool, device=stacks.device)
+    work = torch.empty(
+        k * p * NUM_COLS, dtype=torch.int32, device=stacks.device
+    )
+    rc = _cuda.lib().dbeel_bitonic_merge_rows(
+        stacks.data_ptr(), k, p, work.data_ptr(), out.data_ptr(),
+        same.data_ptr(), _stream(stacks),
+    )
+    _cuda.check(rc, "merge_runs_kernel")
+    _count("K5")
+    return out, same
+
+
+def sort_stack_kernel(
+    stack: torch.Tensor,  # (N, 9) u32 bits, N a power of two
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 as dbeel_tpu/ops/bitonic.py:114 sort_stack_kernel: a full
+    sort of an unsorted stack, every row a one-row run (P = 1)."""
+    return merge_runs_kernel(stack[:, None, :])
+
+
+def merge_runs_prefix_batch_kernel(
+    prefixes: torch.Tensor,  # (J, K, P, 2) u32 bits — J independent jobs
+    counts: torch.Tensor,  # (J, K)
+    out_rows: int,
+) -> torch.Tensor:
+    """K6 — replaces dbeel_tpu/ops/bitonic.py:284
+    merge_runs_prefix_batch_kernel: K3's merge over J independent jobs
+    (each job's index restarts at 0) in one launch → (J, out_rows)
+    packed ``(run << logP) | pos``.  Bound (bytes): the prefixes read
+    once plus J*out_rows words written — at the coalesced shape
+    (8, 4, 131072, 2) with 393216 rows out, 32 MiB + 12 MiB, about
+    13.8 µs at 3.35 TB/s."""
+    j, k, p, _ = prefixes.shape
+    _check_runs(k, p)
+    _check("prefixes", prefixes, (j, k, p, 2))
+    _check("counts", counts, (j, k))
+    if not 0 <= out_rows <= k * p:
+        raise ValueError(f"out_rows {out_rows} outside [0, {k * p}]")
+    if _device_kind(prefixes, counts) == "cpu":
+        return prefix_top_batch_plain(prefixes, counts, out_rows)
+    out = torch.empty(
+        (j, out_rows), dtype=torch.int32, device=prefixes.device
+    )
+    work = torch.empty(
+        j * k * p * 3, dtype=torch.int32, device=prefixes.device
+    )
+    rc = _cuda.lib().dbeel_bitonic_prefix_top_batch(
+        prefixes.data_ptr(), counts.data_ptr(), j, k, p, out_rows,
+        work.data_ptr(), out.data_ptr(), _stream(prefixes),
+    )
+    _cuda.check(rc, "merge_runs_prefix_batch_kernel")
+    _count("K6")
+    return out
 
 
 # ----------------------------------------------------------------------

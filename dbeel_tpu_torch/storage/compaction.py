@@ -447,7 +447,6 @@ def _no_index_runs(index_fields) -> None:
 # (ROADMAP.md, "Port: still to port").
 _NOT_PORTED = {
     "native": "the C++ k-way merge strategy (NativeMergeStrategy)",
-    "coalesced": "the coalescer with K6",
     "distributed": "K9 on 4 GPUs",
 }
 
@@ -455,33 +454,34 @@ _NOT_PORTED = {
 def get_strategy(name: str, device=None) -> CompactionStrategy:
     """Resolve a strategy by config name (config.compaction_backend).
 
-    ``device``, ``device_full`` and ``auto`` merge on the card —
-    ``device`` (default ``"cuda"``) names it; ``"cpu"`` selects the
-    kernels' plain PyTorch versions.  With no card and no ``"cpu"``
-    they raise: there is no silent fallback to a host merge."""
+    ``device``, ``device_full``, ``auto`` and ``coalesced`` merge on the
+    card — ``device`` (default ``"cuda"``) names it; ``"cpu"`` selects
+    the kernels' plain PyTorch versions.  ``coalesced`` shares the
+    device's process-wide coalescer (server/coalescer.py).  With no
+    card and no ``"cpu"`` they raise: there is no silent fallback to a
+    host merge."""
     if name == "heap":
         return HeapMergeStrategy()
     if name == "cpu" or name == "columnar":
         return ColumnarMergeStrategy()
     if name in ("device", "device_full", "auto"):
-        import torch
-
+        from ..ops._cuda import resolve_device
         from ..ops.device_compaction import (
             DeviceFullMergeStrategy,
             DeviceMergeStrategy,
         )
 
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {dev}")
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the kernels' plain PyTorch versions"
-            )
+        dev = resolve_device(device)
         if name == "device_full":
             return DeviceFullMergeStrategy(dev)
         return DeviceMergeStrategy(dev)
+    if name == "coalesced":
+        from ..server.coalescer import (
+            CoalescedDeviceMergeStrategy,
+            default_coalescer,
+        )
+
+        return CoalescedDeviceMergeStrategy(default_coalescer(device))
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"compaction backend {name!r} is not ported yet: "

@@ -5,10 +5,13 @@ memtable(active + flushing) / WAL / SSTable(data+index+bloom) triplets;
 get via memtables → bloom → per-sstable binary search newest→oldest;
 set → WAL (page-padded record) + memtable with auto-flush at capacity;
 pluggable merge compaction (strategy seam; the default is
-``get_strategy("auto")``, on the card, which raises without one — pass
-``get_strategy(name, device="cpu")`` or ``"heap"`` to stay on the
-host) with tombstone drop on the bottom level; crash safety via (1) WAL replay, (2) the two-WAL flush protocol, (3) an
-idempotent compact-action journal; reader-drain before input deletion.
+``get_strategy("auto", device=device)``, on the card unless
+``device="cpu"``, and it raises without one — or pass a strategy such
+as ``"heap"``) with tombstone drop on the bottom level; crash safety
+via (1) WAL replay, (2) the two-WAL flush protocol, (3) an idempotent
+compact-action journal; reader-drain before input deletion.
+``memtable_kind="hash"`` orders each memtable once at flush with the
+device sort (ops/sort.py, K5) on the same ``device``.
 
 Index numbering follows the reference: flushed sstables take even indices
 0,2,4,…; a flush first creates WAL index+2, writes sstable ``index``,
@@ -16,15 +19,17 @@ then deletes WAL ``index`` (lsm_tree.rs:854-921); compaction outputs take
 ``max(inputs)+1`` (odd), which ranks them correctly between the remaining
 older and newer tables.
 
-This slice ports open/recover, set/delete/get, flush, compact and the
-journal; the scan, secondary-index, query and digest methods of
-dbeel_tpu's LSMTree are later slices (ROADMAP.md).
+The port has open/recover, set/delete/get, flush (sorted and hash
+memtables), compact (with the coalescer's ``merge_async``) and the
+journal; the arena memtable and the scan, secondary-index, query and
+digest methods of dbeel_tpu's LSMTree are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import asyncio
 import errno
+import functools
 import logging
 import os
 import re
@@ -62,7 +67,7 @@ from .entry import (
     file_name,
 )
 from .entry_writer import EntryWriter
-from .memtable import Memtable
+from .memtable import HashMemtable, Memtable
 from .page_cache import PartitionPageCache
 from .sstable import SSTable
 
@@ -118,13 +123,30 @@ class LSMTree:
         strategy: Optional[CompactionStrategy] = None,
         memtable_kind: str = "sorted",
         gc_grace_s: float = 0.0,
+        device=None,
     ) -> None:
-        if memtable_kind != "sorted":
+        # "sorted" = SortedDict kept ordered per insert; "hash" = O(1)
+        # dict, ordered once at flush by the device sort (ops/sort.py,
+        # K5) on ``device`` — ``cuda`` unless the caller names ``cpu``.
+        if memtable_kind not in ("auto", "sorted", "hash", "arena"):
+            raise ValueError(
+                f"memtable_kind must be 'auto', 'sorted', 'hash' or "
+                f"'arena', got {memtable_kind!r}"
+            )
+        if memtable_kind in ("arena", "auto"):
             raise NotImplementedError(
                 f"memtable_kind={memtable_kind!r} is not ported yet "
-                "(ROADMAP.md: ArenaMemtable, HashMemtable with K5); "
-                "use 'sorted'"
+                "(ROADMAP.md Queue 1 item 2: ArenaMemtable); use "
+                "'sorted' or 'hash'"
             )
+        if memtable_kind == "hash":
+            from ..ops._cuda import resolve_device
+
+            self._memtable_cls = functools.partial(
+                HashMemtable, device=resolve_device(device)
+            )
+        else:
+            self._memtable_cls = Memtable
         self.dir_path = dir_path
         self.cache = cache
         self.capacity = capacity
@@ -136,10 +158,14 @@ class LSMTree:
         # this window.  0 = reference behavior (drop all at the bottom
         # level).
         self.gc_grace_s = gc_grace_s
-        # No strategy: compaction on the card (raises without one).
-        self.strategy = strategy or get_strategy("auto")
+        # No strategy: compaction on ``device``, the card by default
+        # (raises without one).
+        self.strategy = strategy or get_strategy("auto", device=device)
+        # Secondary-index DDL, stamped on the strategy per merge as in
+        # dbeel_tpu; the port's strategies refuse a non-empty list.
+        self.index_fields: Optional[List[str]] = None
         self.memtable_kind = memtable_kind
-        self._active = Memtable(capacity)
+        self._active = self._memtable_cls(capacity)
         # WAL appends into the active memtable since its last swap —
         # the update-heavy flush trigger (see set_with_timestamp).
         self._appends_since_swap = 0
@@ -302,7 +328,9 @@ class LSMTree:
             ):
                 replayed.set(key, value, ts)
                 replay_appends += 1
-            self._active = Memtable(max(self.capacity, len(replayed) + 1))
+            self._active = self._memtable_cls(
+                max(self.capacity, len(replayed) + 1)
+            )
             for key, (value, ts) in replayed.items():
                 self._active.set(key, value, ts)
             # The replayed WAL can hold far more appends than live
@@ -744,7 +772,7 @@ class LSMTree:
                 assert self._wal is not None
                 self._pending_flush = (flush_index, self._wal)
                 self._flushing = self._active
-                self._active = Memtable(self.capacity)
+                self._active = self._memtable_cls(self.capacity)
                 self._appends_since_swap = 0
                 # Conservative: wall clock, AND the swapped-out
                 # memtable's real newest ts (remote-coordinator
@@ -896,6 +924,8 @@ class LSMTree:
 
         # Merge runs off-loop so reads/writes stay responsive; it gets
         # cache-free sstable handles (the page cache is loop-owned).
+        # Strategies exposing merge_async (the coalescer) coordinate on
+        # the loop instead and offload their heavy stages themselves.
         inputs_nocache = [
             SSTable(self.dir_path, t.index, None) for t in inputs
         ]
@@ -913,16 +943,28 @@ class LSMTree:
                 if not keep_tombstones and self.gc_grace_s > 0
                 else None
             )
-            result = await asyncio.get_event_loop().run_in_executor(
-                None,
-                self.strategy.merge,
-                inputs_nocache,
-                self.dir_path,
-                output_index,
-                None,
-                keep_tombstones,
-                self.bloom_min_size,
-            )
+            self.strategy.index_fields = self.index_fields
+            merge_async = getattr(self.strategy, "merge_async", None)
+            if merge_async is not None:
+                result = await merge_async(
+                    inputs_nocache,
+                    self.dir_path,
+                    output_index,
+                    None,
+                    keep_tombstones,
+                    self.bloom_min_size,
+                )
+            else:
+                result = await asyncio.get_event_loop().run_in_executor(
+                    None,
+                    self.strategy.merge,
+                    inputs_nocache,
+                    self.dir_path,
+                    output_index,
+                    None,
+                    keep_tombstones,
+                    self.bloom_min_size,
+                )
         except CorruptedFile as e:
             # The merge read a corrupt input block (compaction rewrites
             # every byte of the store, so it is also a scrubber):

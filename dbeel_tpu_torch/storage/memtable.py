@@ -6,9 +6,16 @@ hard capacity that drives the flush trigger (set errors / waits at
 capacity, lsm_tree.rs:747-755), in-order iteration, and a consuming
 drain for flush.
 
-``Memtable`` keeps a ``SortedDict`` ordered per insert.  The arena
-(native) and hash (device-sorted flush) memtables of dbeel_tpu are later
-slices of the port (ROADMAP.md).
+Two implementations share one contract (and produce byte-identical
+SSTables):
+
+* ``Memtable`` — a ``SortedDict`` kept ordered per insert.
+* ``HashMemtable`` — a plain dict (O(1) set/get, no per-insert
+  ordering work) whose ordering debt is paid once at flush by the
+  device sort (ops/sort.py, K5 on the card).
+
+The arena (native) memtable of dbeel_tpu is a later slice of the port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -105,6 +112,37 @@ class MemtableBase:
 
     def sorted_items(self) -> List[Item]:
         raise NotImplementedError
+
+
+class HashMemtable(MemtableBase):
+    """``device`` is where the flush sort runs (ops/sort.py)."""
+
+    def __init__(self, capacity: int, device=None) -> None:
+        self.device = device
+        super().__init__(capacity)
+
+    def _new_map(self):
+        self._sorted_cache: Optional[List[Item]] = None
+        return {}
+
+    def set(self, key: bytes, value: bytes, timestamp: int) -> None:
+        self._sorted_cache = None
+        super().set(key, value, timestamp)
+
+    def set_batch(
+        self, entries: List[Tuple[bytes, bytes, int]]
+    ) -> int:
+        self._sorted_cache = None
+        return super().set_batch(entries)
+
+    def sorted_items(self) -> List[Item]:
+        if self._sorted_cache is None:
+            from ..ops.sort import sort_items
+
+            self._sorted_cache = sort_items(
+                list(self._map.items()), self.device
+            )
+        return self._sorted_cache
 
 
 class Memtable(MemtableBase):

@@ -20,6 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(
     dbeel_tpu_torch.__path__, "dbeel_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("dbeel_tpu_torch.server.coalescer",
+             "dbeel_tpu_torch.server.tasks", "dbeel_tpu_torch.ops.sort"):
+    assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -41,11 +44,11 @@ def test_device_strategies_need_a_card_or_cpu(monkeypatch):
     from dbeel_tpu_torch.storage.compaction import get_strategy
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("device", "device_full", "auto"):
+    for name in ("device", "device_full", "auto", "coalesced"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_strategy(name)
         assert get_strategy(name, device="cpu").device.type == "cpu"
-    for name in ("native", "coalesced", "distributed"):
+    for name in ("native", "distributed"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_strategy(name)
     with pytest.raises(ValueError):
@@ -62,6 +65,17 @@ def test_lsm_tree_compacts_on_the_card_by_default(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LSMTree.open_or_create(str(tmp_path / "t"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LSMTree.open_or_create(
+            str(tmp_path / "t"), memtable_kind="hash",
+            strategy=get_strategy("heap"),
+        )
+    hashed = LSMTree.open_or_create(
+        str(tmp_path / "h"), memtable_kind="hash", device="cpu"
+    )
+    assert hashed._active.device.type == "cpu"
+    assert hashed.strategy.device.type == "cpu"
+    hashed.close()
     tree = LSMTree.open_or_create(
         str(tmp_path / "t"), strategy=get_strategy("auto", device="cpu")
     )

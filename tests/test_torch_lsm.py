@@ -217,6 +217,6 @@ def test_import_tree_opens_reference_directory(tmp_dir):
 
 
 def test_unported_memtable_kinds_refuse(tmp_dir):
-    for kind in ("hash", "arena", "auto"):
+    for kind in ("arena", "auto"):
         with pytest.raises(NotImplementedError):
             TTree.open_or_create(f"{tmp_dir}/m", memtable_kind=kind)
