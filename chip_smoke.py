@@ -8,12 +8,14 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero):
 
   1. facts    — card name and power limit, CUDA and nvcc versions, SM
-                count; builds the CUDA kernels (nvcc, sm_90a) and the
-                native host runtime (make -C native) side by side.
-  2. kernels  — K1-K6 at the shapes the main path gives them, on
-                adversarial data, each bit-equal to its plain PyTorch
-                version on the card; times the kernel, the plain
-                version and one library call with CUDA events.
+                count; builds the CUDA kernels (one nvcc per source,
+                sm_90a) and the native host runtime (make -C native)
+                side by side.
+  2. kernels  — K1-K6 and K8a-K8d at the shapes the main path gives
+                them, on adversarial data, each bit-equal to its plain
+                PyTorch version on the card (K8c's sum within
+                n * 2^-52 * sum|x| of math.fsum); times the kernel, the
+                plain version and one library call with CUDA events.
   3. compaction — bench scale: 8 runs of 1.25M docs (16 B keys, 64 B
                 values, bench.py's generator recipe, seed 7) merged with
                 get_strategy("auto") through the pipeline (K1), plus a
@@ -32,13 +34,24 @@ Phases (any failure exits non-zero):
                 SHA-256-equal to the cpu merge of a copy of each
                 shard's tables, a sorted-memtable twin of shard 0
                 flushes the same tables, oracle gets agree.
+  6. scan     — one shard's collection, filtered: 1,000,000 documents of
+                blackbox_bench.py --scan-filter in one LSMTree, one major
+                compaction on the card, 1% overwrites and 0.5% deletes
+                left in newer tables and the memtable; then the
+                selectivity sweep (a count warm-up, v < cut at 100% /
+                10% / 0.1%, a 10% range), a grouped sum, a mark-mode
+                pass and a keys-only scan_page pass, paged as a shard
+                pages them (limit 65536, 256 KiB), each held against a
+                dict oracle; the numeric leaves run on K8a (4 launches)
+                and K8b (1).
 
-The main path is six runs — the bench merge, the dense merge, the two
-trees' major compactions, the shards' writes with their flushes and the
-shards' compaction.  The kernel launch counters are zeroed just before
-each and read just after it, and reported per run; phase 2's
-comparison launches and the traced rerun of the bench merge (run after
-its counts are read) do not count.
+The main path is eight runs — the bench merge, the dense merge, the two
+trees' major compactions, the shards' writes with their flushes, the
+shards' compaction, the scan collection's compaction and its filtered
+scans.  The kernel launch counters are zeroed just before each and
+read just after it, and reported per run; phase 2's comparison
+launches and the traced reruns (run after their counts are read) do
+not count.
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the contract line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of
@@ -51,6 +64,7 @@ import asyncio
 import contextlib
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -74,6 +88,13 @@ SHARDS = 8
 SHARD_CAPACITY = 131072
 SHARD_OPS = 3 * SHARD_CAPACITY
 COMPACTION_FACTOR = 2
+# The scan phase: one shard's collection of blackbox_bench.py
+# --scan-filter documents at 10x that bench's 100,000 keys, paged as a
+# shard pages a filtered scan (limit 65536, dbeel_tpu/config.py's
+# scan_bytes_per_slice of 256 KiB).
+SCAN_DOCS = 1_000_000
+SCAN_LIMIT = 65536
+SCAN_MAX_BYTES = 256 << 10
 
 
 def log(msg: str) -> None:
@@ -103,38 +124,46 @@ def phase_facts(torch):
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc: {nvcc[-1] if nvcc else '?'}; "
         f"SMs {props.multi_processor_count}")
-    # Both builds start together: nvcc here, make on a thread.
-    native_err = []
+    # Every build starts at once: one nvcc per kernel source and make
+    # for the native runtime, each on a thread.
+    errors, took = [], {}
     t0 = time.perf_counter()
 
-    def _make():
+    def _build(name, fn):
         try:
-            native.build()
+            fn()
         except Exception as e:  # reported below
-            native_err.append(e)
+            errors.append(f"{name}: {e}")
+        took[name] = time.perf_counter() - t0
 
-    t_make = threading.Thread(target=_make)
-    t_make.start()
-    _cuda.build()
-    t_kernels = time.perf_counter() - t0
-    t_make.join()
-    t_all = time.perf_counter() - t0
-    if native_err:
-        raise RuntimeError(f"native build failed: {native_err[0]}")
+    threads = [threading.Thread(target=_build, args=("native", native.build))]
+    threads += [
+        threading.Thread(target=_build, args=(name, lambda n=name: _cuda.build(n)))
+        for name in _cuda.SOURCES
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f"build failed: {errors}")
     if native.load() is None:
         raise RuntimeError("native library did not load")
     _cuda.lib()
-    if not _cuda.build_info:
-        log(f"build: kernels cached ({_cuda.library_path()}), "
-            f"kernels+native {t_all:.2f}s")
-        return smi.splitlines()[0] if smi else ""
-    log(f"build: kernels {t_kernels:.2f}s ({_cuda.build_info['command']}), "
-        f"kernels+native {t_all:.2f}s")
-    spills = [
-        ln for ln in _cuda.build_info["ptxas"].splitlines()
-        if "spill" in ln and not ln.strip().startswith("0 bytes stack")
-    ]
-    log(f"ptxas: {len(spills)} kernel(s) with a stack frame or spills")
+    _cuda.query_lib()
+    log("build: " + ", ".join(f"{k} {v:.2f}s" for k, v in sorted(took.items()))
+        + f" (all {time.perf_counter() - t0:.2f}s, side by side)")
+    for name in _cuda.SOURCES:
+        info = _cuda.build_info.get(name)
+        if info is None:
+            log(f"build {name}: cached ({_cuda.library_path(name)})")
+            continue
+        spills = [
+            ln for ln in info["ptxas"].splitlines()
+            if "spill" in ln and not ln.strip().startswith("0 bytes stack")
+        ]
+        log(f"build {name}: {info['seconds']:.2f}s ({info['command']}); "
+            f"ptxas: {len(spills)} kernel(s) with a stack frame or spills")
     return smi.splitlines()[0] if smi else ""
 
 
@@ -185,10 +214,8 @@ def phase_kernels(torch, np):
     T = lambda a: B.to_tensor(a, dev)  # noqa: E731
     results = []
 
-    def record(name, fn, replaces, kernel, plain, library, nbytes, ops):
-        got = kernel()
-        want = plain()
-        torch.cuda.synchronize()
+    def bit_err(name, got, want):
+        """Largest difference of the outputs' bits (0 = bit-equal)."""
         got_l = got if isinstance(got, tuple) else (got,)
         want_l = want if isinstance(want, tuple) else (want,)
         err = 0
@@ -197,19 +224,37 @@ def phase_kernels(torch, np):
                 raise AssertionError(f"{name}: shape {g.shape} != {w.shape}")
             if g.dtype == torch.bool:
                 g, w = g.to(torch.int64), w.to(torch.int64)
+            elif g.dtype == torch.float64:
+                g, w = g.view(torch.int64), w.view(torch.int64)
             else:
                 g, w = B._u64(g), B._u64(w)
             err = max(err, int((g - w).abs().max().item()))
+        return err
+
+    def record(name, fn, replaces, kernel, plain, library, nbytes, ops,
+               module="bitonic", check=None):
+        """``check(got, want)`` returns the max abs error within its
+        stated tolerance and raises outside it; default: bit-equal."""
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        if check is None:
+            err = bit_err(name, got, want)
+            if err:
+                raise AssertionError(f"{name}: kernel disagrees with plain "
+                                     f"(max abs err {err})")
+        else:
+            err = check(got, want)
         bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound_ops = ops / PEAK_OPS_PER_S * 1e3
         row = {
             "name": name,
             "route": "cuda",
-            "source": "dbeel_tpu_torch/csrc/bitonic.cu",
-            "wrapper": f"dbeel_tpu_torch/ops/bitonic.py:{fn}",
+            "source": f"dbeel_tpu_torch/csrc/{module.split('_')[0]}.cu",
+            "wrapper": f"dbeel_tpu_torch/ops/{module}.py:{fn}",
             "replaces": replaces,
             "launches": 0,
-            "bit_equal": err == 0,
+            "bit_equal": check is None,
             "max_abs_err": err,
             "ms": _time_cuda(torch, kernel, 20),
             "plain_ms": _time_cuda(torch, plain, 3),
@@ -219,11 +264,9 @@ def phase_kernels(torch, np):
                 _time_cuda(torch, library, 20) if library else None
             ),
         }
-        log(f"{name}: bit_equal={row['bit_equal']} ms={row['ms']:.4f} "
+        log(f"{name}: {'bit_equal' if check is None else 'within bound'} "
+            f"max_abs_err={err} ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.3f} bound_ms={row['bound_ms']:.5f}")
-        if err:
-            raise AssertionError(f"{name}: kernel disagrees with plain "
-                                 f"(max abs err {err})")
         results.append(row)
 
     def as_signed(key_u64):
@@ -361,6 +404,95 @@ def phase_kernels(torch, np):
         lambda: torch.sort(key6, dim=1, stable=True),
         pre6.numel() * 4 + cnt6.numel() * 4 + j * out6 * 4,
         j * k * p // 2 * stages6 * 3,
+    )
+    del pre6, key6
+
+    # K8a-K8d at the scan phase's shape: one staged float64 column of
+    # SCAN_DOCS rows, 20% invalid, salted with NaN, +-inf, +-0.0,
+    # subnormals and exact ties to the operands.
+    from dbeel_tpu_torch.ops import query_kernels as Q
+
+    n = SCAN_DOCS
+    inf, nan = float("inf"), float("nan")
+    odd = [0.0, -0.0, 0.25, -0.25, inf, -inf, nan, 5e-324, -5e-324,
+           2.2250738585072014e-308]
+    vals_np = rng.normal(size=n) * rng.choice([1e-3, 1.0, 1e6], size=n)
+    pick = rng.random(n) < 0.3
+    vals_np[pick] = rng.choice(odd, size=int(pick.sum()))
+    valid_np = rng.random(n) >= 0.2
+    vals = torch.from_numpy(vals_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    for op in Q.OPS:
+        for x in (0.25, -0.0, nan, inf, 5e-324, float(vals_np[7])):
+            err = bit_err("K8a", Q.cmp_f64(vals, valid, x, op),
+                          Q.cmp_f64_plain(vals, valid, x, op))
+            if err:
+                raise AssertionError(f"K8a {op} {x}: masks differ")
+    for lo, hi, use_lo, use_hi in ((-0.25, 0.0, True, False),
+                                   (0.0, 0.25, False, True),
+                                   (-0.0, 0.25, True, True),
+                                   (-inf, 5e-324, True, True)):
+        err = bit_err("K8b", Q.range_f64(vals, valid, lo, hi, use_lo, use_hi),
+                      Q.range_f64_plain(vals, valid, lo, hi, use_lo, use_hi))
+        if err:
+            raise AssertionError(f"K8b {lo} {hi} {use_lo} {use_hi}: differ")
+    finite = valid & torch.isfinite(vals)
+    zero = vals == 0
+    masks = {
+        "valid": valid, "finite": finite, "empty": torch.zeros_like(valid),
+        "zeros": zero, "neg_zeros": zero & torch.signbit(vals),
+        "pos_zeros": zero & ~torch.signbit(vals),
+    }
+    for name, m in masks.items():
+        if bit_err("K8d", Q.min_max_f64(vals, m), Q.min_max_f64_plain(vals, m)):
+            raise AssertionError(f"K8d {name}: min/max differ")
+    if not math.isnan(Q.sum_f64(vals, valid).item()):
+        raise AssertionError("K8c: a masked-in NaN did not propagate")
+    # Library yardsticks: one PyTorch call on an operand prepared
+    # outside the timed call (invalid rows as NaN for the comparison,
+    # zero-filled rows for the sum, the selected rows for aminmax).
+    vals_nan = torch.where(valid, vals, nan)
+    vals_zero = torch.where(finite, vals, 0.0)
+    vals_sel = vals[finite]
+    sel = vals_np[finite.cpu().numpy()]
+    exact_sum = math.fsum(sel.tolist())
+    sum_bound = n * 2.0**-52 * float(np.abs(sel).sum())
+
+    def sum_check(got, _want):
+        err = abs(got.item() - exact_sum)
+        if not err <= sum_bound:
+            raise AssertionError(f"K8c: |sum - fsum| {err} > {sum_bound}")
+        return err
+
+    record(
+        "K8a", "cmp_f64",
+        "dbeel_tpu/ops/query_kernels.py:154 (wrapper eval_cmp_f64 :197)",
+        lambda: Q.cmp_f64(vals, valid, 0.25, "<"),
+        lambda: Q.cmp_f64_plain(vals, valid, 0.25, "<"),
+        lambda: torch.lt(vals_nan, 0.25),
+        n * 10, n * 2, module="query_kernels",
+    )
+    record(
+        "K8b", "range_f64",
+        "dbeel_tpu/ops/query_kernels.py:170 (wrapper eval_range_f64 :219)",
+        lambda: Q.range_f64(vals, valid, -0.25, 0.25, True, True),
+        lambda: Q.range_f64_plain(vals, valid, -0.25, 0.25, True, True),
+        None,  # no single PyTorch call tests a two-sided range
+        n * 10, n * 3, module="query_kernels",
+    )
+    record(
+        "K8c", "sum_f64", "dbeel_tpu/ops/query_kernels.py:179",
+        lambda: Q.sum_f64(vals, finite),
+        lambda: Q.sum_f64_plain(vals, finite),
+        lambda: torch.sum(vals_zero),
+        n * 9, n, module="query_kernels", check=sum_check,
+    )
+    record(
+        "K8d", "min_max_f64", "dbeel_tpu/ops/query_kernels.py:183",
+        lambda: Q.min_max_f64(vals, valid),
+        lambda: Q.min_max_f64_plain(vals, valid),
+        lambda: torch.aminmax(vals_sel),
+        n * 9, n * 2, module="query_kernels",
     )
     return results
 
@@ -949,6 +1081,285 @@ def check_shard_launches(runs, n_shards=SHARDS):
 
 
 # ----------------------------------------------------------------------
+# Phase 6: one shard's collection, filtered
+# ----------------------------------------------------------------------
+
+
+def scan_docs(np, n, seed=7):
+    """blackbox_bench.py --scan-filter's collection (keys
+    msgpack("key-%08d"), documents {"v": j, "blob": "x" * 100}, loaded
+    in key order), then 1% of the keys overwritten with a new v below n
+    and another 0.5% deleted, interleaved (seeded).  Returns (loads,
+    updates) as (key, value or None for a delete, ts, v)."""
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    blob = "x" * 100
+    loads = [
+        (codec.packb("key-%08d" % j), codec.packb({"v": j, "blob": blob}),
+         1_000 + j, j)
+        for j in range(n)
+    ]
+    rng = np.random.default_rng(seed)
+    n_over, n_del = n // 100, n // 200
+    picks = rng.permutation(n)[: n_over + n_del].tolist()
+    new_v = rng.integers(0, n, size=n_over).tolist() + [None] * n_del
+    updates = []
+    for i, u in enumerate(rng.permutation(n_over + n_del).tolist()):
+        key, v = loads[picks[u]][0], new_v[u]
+        value = None if v is None else codec.packb({"v": v, "blob": blob})
+        updates.append((key, value, 1_000 + n + i, v))
+    return loads, updates
+
+
+async def _scan_pass(tree, where, agg, mode, keep=True, with_values=True):
+    """One filtered scan over the whole ring, paged as a shard pages it
+    (``start_after`` = the last cover) until ``more`` is false.  Returns
+    the pages — (n entries, more, cover, scanned rows, scanned bytes,
+    partial, eval_path) — the entries if ``keep``, and the seconds."""
+    pages, entries, sa = [], [], None
+    t0 = time.perf_counter()
+    while True:
+        es, more, cover, rows, nbytes, partial, path = (
+            await tree.scan_filter_page(
+                0, 0, sa, None, SCAN_LIMIT, SCAN_MAX_BYTES, with_values,
+                where, agg, mode,
+            )
+        )
+        pages.append((len(es), more, cover, rows, nbytes, partial, path))
+        if keep:
+            entries.extend(es)
+        if not more:
+            return pages, entries, time.perf_counter() - t0
+        sa = cover
+
+
+def _check_pass(name, pages, stage, first_path):
+    """Covers rise to the stage's last key, scanned rows add up to the
+    stage, the first page reports ``first_path`` and every later page
+    "cached" (a mask-cache hit)."""
+    covers = [p[2] for p in pages]
+    if any(a >= b for a, b in zip(covers, covers[1:])):
+        raise AssertionError(f"scan {name}: covers do not rise")
+    if covers[-1] != stage.key_at(stage.n - 1) or pages[-1][1]:
+        raise AssertionError(f"scan {name}: the last page is not the end")
+    rows = sum(p[3] for p in pages)
+    if rows != stage.n:
+        raise AssertionError(f"scan {name}: {rows} rows scanned of {stage.n}")
+    paths = [p[6] for p in pages]
+    want = [first_path] + ["cached"] * (len(pages) - 1)
+    if first_path == "numpy":
+        want = ["numpy"] * len(pages)
+    if paths != want:
+        raise AssertionError(f"scan {name}: eval paths {sorted(set(paths))}, "
+                             f"first {paths[0]} (want {first_path})")
+    return rows
+
+
+async def _drive_scan(torch, np, n, device, strategy):
+    from dbeel_tpu_torch import query as Q
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.storage import LSMTree, query_vec
+
+    t0 = time.perf_counter()
+    loads, updates = scan_docs(np, n)
+    live = {}
+    for key, value, ts, v in loads + updates:
+        if value is None:
+            live.pop(key, None)
+        else:
+            live[key] = (value, ts, v)
+    log(f"scan: {n} docs and {len(updates)} updates generated in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    d = os.path.join(WORK, "scan")
+    tree = LSMTree.open_or_create(d, strategy=strategy, device=device)
+    t0 = time.perf_counter()
+    for key, value, ts, _v in loads:
+        await tree.set_with_timestamp(key, value, ts)
+    await tree.flush()
+    await _settle()
+    t_load = time.perf_counter() - t0
+    tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+    # Run scan_load: the major compaction of the loaded tables.
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    await tree.compact(tables, max(tables) + 1, keep_tombstones=False)
+    t_compact = time.perf_counter() - t0
+    load_counts = dict(_cuda.launches)
+    # 60% of the updates go to newer tables, the rest stays in the
+    # memtable (below its capacity), so a scan merges newest-wins
+    # across the compacted table, newer tables and the memtable.
+    t0 = time.perf_counter()
+    for i, (key, value, ts, _v) in enumerate(updates):
+        if i == len(updates) * 3 // 5:
+            await tree.flush()
+            await _settle()
+        if value is None:
+            await tree.delete_with_timestamp(key, ts)
+        else:
+            await tree.set_with_timestamp(key, value, ts)
+    await _settle()
+    layout = [(i, s) for i, s in tree.sstable_indices_and_sizes()]
+    log(f"scan load: {n} docs in {t_load:.1f}s ({len(tables)} flushed "
+        f"tables); major compaction {t_compact:.2f}s, launches "
+        f"{load_counts}; {len(updates)} updates {time.perf_counter() - t0:.2f}s "
+        f"-> tables {layout} + {tree.memtable_entries} in the memtable")
+    if len(layout) < 2 or tree.memtable_entries == 0:
+        raise AssertionError("updates did not land in newer tables and "
+                             "the memtable")
+
+    cut10, cut01 = n // 10, n // 1000
+    lo, hi = n // 2, n // 2 + n // 10
+    specs = {
+        "100%": ["cmp", "v", "<", n],
+        "10%": ["cmp", "v", "<", cut10],
+        "0.1%": ["cmp", "v", "<", cut01],
+        "range 10%": ["range", "v", lo, hi],
+    }
+
+    def expect(pred):
+        return [[k, val, ts] for k, (val, ts, v) in sorted(live.items())
+                if pred(v)]
+
+    count = Q.validate_agg({"op": "count"})
+    grouped = Q.validate_agg(
+        {"op": "sum", "field": "v", "group": len(loads[0][0]) - 2}
+    )
+    col_build = []
+    plain_field_column = query_vec.field_column
+
+    def timed_field_column(stage_, name):
+        if name in stage_._field_cols:
+            return plain_field_column(stage_, name)
+        t = time.perf_counter()
+        col = plain_field_column(stage_, name)
+        col_build.append(time.perf_counter() - t)
+        return col
+
+    # Run scan_filter: every query of the phase.
+    query_vec.field_column = timed_field_column
+    _cuda.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        stage = await tree._current_scan_stage()
+        t_stage = time.perf_counter() - t0
+        if stage is None or stage.n != n:
+            raise AssertionError(f"stage of {stage and stage.n} rows, want {n}")
+        log(f"scan stage: {stage.n} rows built in {t_stage:.2f}s")
+        passes = {}
+        pages, _, secs = await _scan_pass(
+            tree, ["cmp", "v", ">=", 0], count, "drop", keep=False
+        )
+        passes["warm-up count"] = (pages, secs)
+        got = sum(p[5][0] for p in pages)
+        if got != len(live):
+            raise AssertionError(f"warm-up count {got} != {len(live)}")
+        for label, where in specs.items():
+            pages, entries, secs = await _scan_pass(
+                tree, where, None, "drop", keep=label != "100%"
+            )
+            passes[label] = (pages, secs)
+            matched = sum(p[0] for p in pages)
+            if label == "100%":
+                ok = matched == len(live)
+            elif label == "range 10%":
+                ok = entries == expect(lambda v: lo <= v < hi)
+            else:
+                cut = where[3]
+                ok = entries == expect(lambda v, c=cut: v < c)
+            if not ok:
+                raise AssertionError(f"scan {label}: entries differ from "
+                                     f"the oracle ({matched} matched)")
+        pages, _, secs = await _scan_pass(tree, None, grouped, "drop",
+                                          keep=False)
+        passes["grouped sum"] = (pages, secs)
+        state = Q.AggState(grouped)
+        for p in pages:
+            state.fold_partial(p[5])
+        want = {}
+        for k, (_val, _ts, v) in live.items():
+            g = k[: grouped["group"]]
+            want[g] = want.get(g, 0) + v
+        if state.result() != want:
+            raise AssertionError("scan grouped sums differ from the oracle")
+        pages, entries, secs = await _scan_pass(tree, specs["0.1%"], None,
+                                                "mark")
+        passes["0.1% mark"] = (pages, secs)
+        flagged = [e[:3] for e in entries if e[3]]
+        tombs = sum(1 for e in entries if e[1] == b"" and not e[3])
+        if (flagged != expect(lambda v: v < cut01) or len(entries) != n
+                or tombs != n - len(live)):
+            raise AssertionError("scan mark pass differs from the oracle")
+        t0 = time.perf_counter()
+        keys, sa, n_pages = [], None, 0
+        while True:
+            es, more = await tree.scan_page(0, 0, sa, None, SCAN_LIMIT,
+                                            SCAN_MAX_BYTES, False)
+            keys.extend(e[0] for e in es if e[1] is None)
+            n_pages += 1
+            if not more:
+                break
+            sa = es[-1][0]
+        t_keys = time.perf_counter() - t0
+        if keys != sorted(live):
+            raise AssertionError("keys-only scan differs from the oracle")
+    finally:
+        query_vec.field_column = plain_field_column
+    counts = dict(_cuda.launches)
+
+    first = {"warm-up count": "device", "grouped sum": "numpy",
+             "0.1% mark": "cached"}
+    for label, (pages, secs) in passes.items():
+        rows = _check_pass(label, pages, stage, first.get(label, "device"))
+        log(f"scan {label}: {len(pages)} pages {secs:.2f}s, "
+            f"{rows / secs:.0f} keys scanned/s, "
+            f"{sum(p[0] for p in pages)} entries, first page "
+            f"{pages[0][6]}")
+    log(f"scan keys-only scan_page: {n_pages} pages {t_keys:.2f}s, "
+        f"{n / t_keys:.0f} keys/s")
+    log(f"scan: first column build {col_build[0]:.2f}s (builds {col_build}); "
+        f"launches {counts}")
+
+    # After the counts are read: the first evaluation of a spec again
+    # (stage build, column build, K8a and its copies) under the profiler.
+    tree._drop_scan_stage()
+    with _device_trace(torch, device) as prof:
+        t0 = time.perf_counter()
+        await tree.scan_filter_page(0, 0, None, None, SCAN_LIMIT,
+                                    SCAN_MAX_BYTES, True, specs["10%"],
+                                    None, "drop")
+        wall_s = time.perf_counter() - t0
+    if prof is not None:
+        busy_ms, top = _device_busy(prof)
+        log(f"profile: first cmp evaluation wall {wall_s * 1e3:.1f}ms "
+            f"(traced), device busy {busy_ms:.3f}ms = "
+            f"{busy_ms / (wall_s * 1e3):.6f} of wall; top: {top}")
+    tree.close()
+    return {"scan_load": load_counts, "scan_filter": counts}
+
+
+def phase_scan(torch, np, n=SCAN_DOCS, device="cuda", strategy=None):
+    """Returns the launch counts of the load's compaction and of the
+    filtered scans.  ``strategy`` None = the tree's default
+    (get_strategy("auto") on ``device``)."""
+    t0 = time.perf_counter()
+    runs = asyncio.run(_drive_scan(torch, np, n, device, strategy))
+    shutil.rmtree(os.path.join(WORK, "scan"))
+    log(f"scan: {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_scan_launches(runs):
+    """Four K8a launches (one per cmp spec) and one K8b in the filtered
+    scans, and nothing else."""
+    got = runs["scan_filter"]
+    want = {name: 0 for name in got}
+    want.update(K8a=4, K8b=1)
+    if got != want:
+        raise AssertionError(f"scan_filter launches {got} (want {want})")
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -984,6 +1395,14 @@ def main() -> int:
         shard_runs = phase_shards(torch, np)
         check_shard_launches(shard_runs)
         runs.update(shard_runs)
+        scan_runs = phase_scan(torch, np)
+        check_scan_launches(scan_runs)
+        runs.update(scan_runs)
+        from dbeel_tpu_torch.ops import query_kernels
+
+        with open(query_kernels.last_good_path()) as f:
+            log(f"DEVICE_LAST_GOOD ({query_kernels.last_good_path()}): "
+                f"{json.dumps(json.load(f), sort_keys=True)}")
         for row in kernels:
             by_run = {run: c[row["name"]] for run, c in runs.items()}
             row["launches"] = sum(by_run.values())

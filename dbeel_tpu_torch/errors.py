@@ -1,4 +1,4 @@
-"""Error taxonomy — the subset the storage slice raises.
+"""Error taxonomy — the subset the storage and query slices raise.
 
 Same kind names as ``dbeel_tpu.errors`` (the stable wire names of the
 reference, reference src/error.rs:8-74), so a later server slice
@@ -37,3 +37,4 @@ ShardDegraded = _mk(
     "The shard's disk failed (EIO/ENOSPC on the WAL); it is serving "
     "reads only — retry the write on another replica.",
 )
+BadFieldType = _mk("BadFieldType", "Request field has the wrong type.")

@@ -1,7 +1,9 @@
-"""Device ops: the compaction merge on the card.
+"""Device ops: the compaction merge and the query filters on the card.
 
-``bitonic`` holds the kernel wrappers (CUDA kernels in ``csrc/``, built
-and bound by ``_cuda``) with their plain PyTorch versions;
-``device_compaction`` is the merge strategy over them and ``pipeline``
-the partitioned, overlapped path for big merges.
+``bitonic`` holds the merge kernels' wrappers and ``query_kernels`` the
+filter and aggregate kernels' (CUDA kernels in ``csrc/``, built and
+bound by ``_cuda``, which also keeps every wrapper's launch count),
+each with its plain PyTorch version; ``device_compaction`` is the merge
+strategy over them, ``pipeline`` the partitioned, overlapped path for
+big merges and ``sort`` the hash memtable's flush sort.
 """

@@ -1,11 +1,15 @@
-"""Build and bind the CUDA kernels of ``csrc/bitonic.cu``.
+"""Build and bind the CUDA kernels of ``csrc/``.
 
-Route (b) of a hand-written kernel: ``nvcc`` compiles the source into a
-shared library with a plain C interface, loaded with ctypes.  The build
-runs at first use — never at import, so the CPU tests import this module
-on machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed
-in ``.gitignore``), under a name carrying the source's hash so a stale
-library is never loaded.  An flock serialises concurrent builders.
+Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
+a shared library with a plain C interface, loaded with ctypes — one
+library per source (``bitonic.cu``: the merge networks K1-K6;
+``query.cu``: the filter kernels K8), so the builds run side by side
+and a change to one source rebuilds only its library.  A build runs at
+first use — never at import, so the CPU tests import this module on
+machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed in
+``.gitignore``), under a name carrying the source's hash so a stale
+library is never loaded.  An flock per source serialises concurrent
+builders.
 
 Every entry returns ``cudaGetLastError()``; ``check`` raises on non-zero.
 """
@@ -19,10 +23,13 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Callable, Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "bitonic.cu")
+SOURCES = {
+    name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    for name in ("bitonic", "query")
+}
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = [
     "-gencode",
@@ -34,10 +41,36 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# Facts of the build that loaded the library (chip_smoke.py prints them).
-build_info: dict = {}
+
+# Kernel launches per wrapper since the last reset_launches(): each
+# wrapper adds one where it launches its kernel, and nowhere else.
+# Wrappers launch from several threads (flush, compaction and scan
+# executors), so counts are taken under a lock.
+launches: Dict[str, int] = {
+    name: 0
+    for name in (
+        "K1", "K2", "K3", "K4", "K5", "K6", "K8a", "K8b", "K8c", "K8d",
+    )
+}
+_launches_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
+
+
+# Facts of each build that ran in this process, by source name
+# (chip_smoke.py prints them); a cached library adds nothing.
+build_info: Dict[str, dict] = {}
 
 
 def nvcc_path() -> str:
@@ -50,29 +83,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libdbeel_bitonic-{digest}.so")
+    return os.path.join(BUILD_DIR, f"libdbeel_{name}-{digest}.so")
 
 
-def build() -> str:
-    """Compile the kernels if this source has no library yet; returns
-    the library path.  A build that runs records its seconds, command
-    and ``-Xptxas -v`` report (registers, shared memory and spills of
-    each kernel) in ``build_info``; a cached library leaves it empty."""
+def build(name: str) -> str:
+    """Compile source ``name`` if it has no library yet; returns the
+    library path.  A build that runs records its seconds, command and
+    ``-Xptxas -v`` report (registers, shared memory and spills of each
+    kernel) in ``build_info[name]``."""
     import fcntl
 
-    out = library_path()
+    out = library_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock_f:
+    with open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as lock_f:
         fcntl.flock(lock_f, fcntl.LOCK_EX)
         if os.path.exists(out):
             return out
         tmp = f"{out}.tmp.{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
+        cmd = [
+            nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+            SOURCES[name],
+        ]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -80,7 +116,7 @@ def build() -> str:
                 f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, out)
-        build_info.update(
+        build_info[name] = dict(
             seconds=time.perf_counter() - t0,
             command=" ".join(cmd),
             ptxas=proc.stderr,
@@ -88,42 +124,76 @@ def build() -> str:
     return out
 
 
-def lib() -> ctypes.CDLL:
-    global _lib
+def _load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     with _lock:
-        if _lib is not None:
-            return _lib
-        handle = ctypes.CDLL(build())
-        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-        handle.dbeel_bitonic_prefix32_packed.argtypes = [
-            vp, vp, u32, u32, u32, u32, vp, vp, vp,
-        ]
-        handle.dbeel_bitonic_prefix64_packed.argtypes = [
-            vp, vp, u32, u32, u32, u32, vp, vp, vp,
-        ]
-        handle.dbeel_bitonic_prefix_top.argtypes = [
-            vp, vp, u32, u32, u32, vp, vp, vp,
-        ]
-        handle.dbeel_bitonic_perm.argtypes = [
-            vp, u32, u32, vp, vp, vp, vp,
-        ]
-        handle.dbeel_bitonic_merge_rows.argtypes = [
-            vp, u32, u32, vp, vp, vp, vp,
-        ]
-        handle.dbeel_bitonic_prefix_top_batch.argtypes = [
-            vp, vp, u32, u32, u32, u32, vp, vp, vp,
-        ]
-        for fn in (
-            handle.dbeel_bitonic_prefix32_packed,
-            handle.dbeel_bitonic_prefix64_packed,
-            handle.dbeel_bitonic_prefix_top,
-            handle.dbeel_bitonic_perm,
-            handle.dbeel_bitonic_merge_rows,
-            handle.dbeel_bitonic_prefix_top_batch,
-        ):
-            fn.restype = ctypes.c_int
-        _lib = handle
-        return _lib
+        handle = _libs.get(name)
+        if handle is None:
+            handle = ctypes.CDLL(build(name))
+            bind(handle)
+            _libs[name] = handle
+        return handle
+
+
+def _bind_bitonic(handle: ctypes.CDLL) -> None:
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    handle.dbeel_bitonic_prefix32_packed.argtypes = [
+        vp, vp, u32, u32, u32, u32, vp, vp, vp,
+    ]
+    handle.dbeel_bitonic_prefix64_packed.argtypes = [
+        vp, vp, u32, u32, u32, u32, vp, vp, vp,
+    ]
+    handle.dbeel_bitonic_prefix_top.argtypes = [
+        vp, vp, u32, u32, u32, vp, vp, vp,
+    ]
+    handle.dbeel_bitonic_perm.argtypes = [
+        vp, u32, u32, vp, vp, vp, vp,
+    ]
+    handle.dbeel_bitonic_merge_rows.argtypes = [
+        vp, u32, u32, vp, vp, vp, vp,
+    ]
+    handle.dbeel_bitonic_prefix_top_batch.argtypes = [
+        vp, vp, u32, u32, u32, u32, vp, vp, vp,
+    ]
+    for fn in (
+        handle.dbeel_bitonic_prefix32_packed,
+        handle.dbeel_bitonic_prefix64_packed,
+        handle.dbeel_bitonic_prefix_top,
+        handle.dbeel_bitonic_perm,
+        handle.dbeel_bitonic_merge_rows,
+        handle.dbeel_bitonic_prefix_top_batch,
+    ):
+        fn.restype = ctypes.c_int
+
+
+def _bind_query(handle: ctypes.CDLL) -> None:
+    vp, i32, i64, f64 = (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double,
+    )
+    handle.dbeel_query_cmp_f64.argtypes = [vp, vp, i64, f64, i32, vp, vp]
+    handle.dbeel_query_range_f64.argtypes = [
+        vp, vp, i64, f64, f64, i32, i32, vp, vp,
+    ]
+    handle.dbeel_query_sum_f64.argtypes = [vp, vp, i64, vp, vp, vp]
+    handle.dbeel_query_min_max_f64.argtypes = [vp, vp, i64, vp, vp, vp]
+    handle.dbeel_query_partials.argtypes = [i64]
+    handle.dbeel_query_partials.restype = ctypes.c_int
+    for fn in (
+        handle.dbeel_query_cmp_f64,
+        handle.dbeel_query_range_f64,
+        handle.dbeel_query_sum_f64,
+        handle.dbeel_query_min_max_f64,
+    ):
+        fn.restype = ctypes.c_int
+
+
+def lib() -> ctypes.CDLL:
+    """The merge networks' library (``csrc/bitonic.cu``)."""
+    return _load("bitonic", _bind_bitonic)
+
+
+def query_lib() -> ctypes.CDLL:
+    """The filter kernels' library (``csrc/query.cu``)."""
+    return _load("query", _bind_query)
 
 
 def check(rc: int, what: str) -> None:

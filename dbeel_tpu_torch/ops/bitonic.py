@@ -22,8 +22,8 @@ Each wrapper takes int32 tensors that carry uint32 bits (PyTorch has no
 arithmetic on ``torch.uint32``), launches the kernel for a CUDA tensor
 (or raises) and runs the network's plain PyTorch version — the same
 stages in int64 — for a CPU tensor.  ``launches`` counts kernel
-launches per wrapper; wrappers launch from several threads (flush and
-compaction executors), so the count is taken under a lock.
+launches per wrapper (one registry for every kernel module, taken
+under a lock: wrappers launch from several threads).
 
 Row format of the 9-column stack (K4):
   cols 0-3 k0..k3 (16B big-endian key prefix), 4 key_len,
@@ -34,7 +34,6 @@ sort last.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -49,20 +48,9 @@ NUM_EQ_COLS = 5  # key identity = prefix words + key_len
 SENTINEL = np.uint32(0xFFFFFFFF)
 _U32 = 0xFFFFFFFF
 
-# Kernel launches per wrapper since the last reset_launches().
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
-_launches_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _launches_lock:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _launches_lock:
-        launches[name] += 1
+# The launch counters are shared by every kernel module (ops/_cuda.py).
+launches = _cuda.launches
+reset_launches = _cuda.reset_launches
 
 
 # ----------------------------------------------------------------------
@@ -287,7 +275,7 @@ def merge_runs_prefix32_packed_batch_kernel(
         work.data_ptr(), out.data_ptr(), _stream(vals),
     )
     _cuda.check(rc, "merge_runs_prefix32_packed_batch_kernel")
-    _count("K1")
+    _cuda.count("K1")
     return out
 
 
@@ -320,7 +308,7 @@ def merge_runs_prefix64_packed_batch_kernel(
         work.data_ptr(), out.data_ptr(), _stream(prefixes),
     )
     _cuda.check(rc, "merge_runs_prefix64_packed_batch_kernel")
-    _count("K2")
+    _cuda.count("K2")
     return out
 
 
@@ -351,7 +339,7 @@ def merge_runs_prefix_kernel(
         work.data_ptr(), out.data_ptr(), _stream(prefixes),
     )
     _cuda.check(rc, "merge_runs_prefix_kernel")
-    _count("K3")
+    _cuda.count("K3")
     return out
 
 
@@ -379,7 +367,7 @@ def merge_runs_perm_kernel(
         same.data_ptr(), _stream(stacks),
     )
     _cuda.check(rc, "merge_runs_perm_kernel")
-    _count("K4")
+    _cuda.count("K4")
     return idx, same
 
 
@@ -409,7 +397,7 @@ def merge_runs_kernel(
         same.data_ptr(), _stream(stacks),
     )
     _cuda.check(rc, "merge_runs_kernel")
-    _count("K5")
+    _cuda.count("K5")
     return out, same
 
 
@@ -452,7 +440,7 @@ def merge_runs_prefix_batch_kernel(
         work.data_ptr(), out.data_ptr(), _stream(prefixes),
     )
     _cuda.check(rc, "merge_runs_prefix_batch_kernel")
-    _count("K6")
+    _cuda.count("K6")
     return out
 
 

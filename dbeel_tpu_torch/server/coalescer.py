@@ -13,7 +13,8 @@ same batched shape as the card.
 
 One coalescer is shared per device and process (all shards of a node
 run on one loop).  A failed launch raises to every job of its batch:
-there is no host merge behind it.
+there is no host merge behind it.  The first launch on a card is
+recorded in DEVICE_LAST_GOOD.json (``query_kernels._persist_wake``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops import bitonic
+from ..ops import bitonic, query_kernels
 from ..ops._cuda import resolve_device
 from ..storage import columnar
 from ..storage.compaction import _no_index_runs
@@ -156,13 +157,19 @@ class CompactionCoalescer:
                 # The device→host copy blocks this executor thread
                 # until the launch on its stream is done, before any
                 # future is set.
-                return bitonic.to_numpy(
+                packed = bitonic.to_numpy(
                     bitonic.merge_runs_prefix_batch_kernel(
                         bitonic.to_tensor(batch.prefixes, self.device),
                         bitonic.to_tensor(batch.counts, self.device),
                         batch.out_rows,
                     )
                 )
+                query_kernels._persist_wake(
+                    self.device, "coalesced_compaction",
+                    batch_jobs=len(jobs), k=batch.k, p=batch.p,
+                    kernels="K6 merge_runs_prefix_batch_kernel",
+                )
+                return packed
 
             packed = await asyncio.get_event_loop().run_in_executor(
                 None, run

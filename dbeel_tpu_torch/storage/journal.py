@@ -4,107 +4,41 @@ The journal ``{"renames": [[src, dst], ...], "deletes": [path, ...]}``
 is written in MessagePack, byte-identical to
 ``msgpack.packb(action, use_bin_type=True)`` — which is what dbeel_tpu
 writes, so a journal left by either package replays in the other.  The
-journal holds only maps, arrays and strings, so this codec covers
-exactly those (the spec's fix/8/16/32 forms) instead of depending on
-the ``msgpack`` package.
+bytes come from the package's MessagePack codec
+(``utils/msgpack_codec``); this module holds the journal to its shape:
+maps, arrays and strings only, in both directions.
 """
 
 from __future__ import annotations
 
-import struct
-from typing import Any, Tuple
+from typing import Any
+
+from ..utils import msgpack_codec
 
 
-def _head(n: int, fix_base: int, fix_max: int, wide: Tuple[int, ...]) -> bytes:
-    """Type header: fix form, else the smallest of the 8/16/32-bit
-    forms in ``wide`` (opcodes for 1-, 2-, 4-byte lengths; 0 = none)."""
-    if n <= fix_max:
-        return bytes([fix_base | n])
-    op8, op16, op32 = wide
-    if op8 and n <= 0xFF:
-        return bytes([op8, n])
-    if n <= 0xFFFF:
-        return bytes([op16]) + struct.pack(">H", n)
-    if n <= 0xFFFFFFFF:
-        return bytes([op32]) + struct.pack(">I", n)
-    raise ValueError("object too large for MessagePack")
+def _journal_shaped(obj: Any) -> bool:
+    if isinstance(obj, str):
+        return True
+    if isinstance(obj, (list, tuple)):
+        return all(_journal_shaped(x) for x in obj)
+    if isinstance(obj, dict):
+        return all(
+            _journal_shaped(k) and _journal_shaped(v)
+            for k, v in obj.items()
+        )
+    return False
 
 
 def packb(obj: Any) -> bytes:
-    out = bytearray()
-    _pack(obj, out)
-    return bytes(out)
-
-
-def _pack(obj: Any, out: bytearray) -> None:
-    if isinstance(obj, str):
-        raw = obj.encode("utf-8")
-        out += _head(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
-        out += raw
-    elif isinstance(obj, (list, tuple)):
-        out += _head(len(obj), 0x90, 15, (0, 0xDC, 0xDD))
-        for item in obj:
-            _pack(item, out)
-    elif isinstance(obj, dict):
-        out += _head(len(obj), 0x80, 15, (0, 0xDE, 0xDF))
-        for k, v in obj.items():
-            _pack(k, out)
-            _pack(v, out)
-    else:
-        raise TypeError(f"journal codec cannot pack {type(obj).__name__}")
+    if not _journal_shaped(obj):
+        raise TypeError("journal codec packs maps, arrays and strings only")
+    return msgpack_codec.packb(obj)
 
 
 def unpackb(buf: bytes) -> Any:
     """Inverse of packb; raises ValueError on anything else, including
     a torn (truncated) or over-long buffer."""
-    obj, end = _unpack(memoryview(buf), 0)
-    if end != len(buf):
-        raise ValueError("trailing bytes after journal object")
+    obj = msgpack_codec.unpackb(buf)
+    if not _journal_shaped(obj):
+        raise ValueError("not a compact-action journal")
     return obj
-
-
-def _take(buf: memoryview, pos: int, n: int) -> Tuple[bytes, int]:
-    if pos + n > len(buf):
-        raise ValueError("truncated journal")
-    return bytes(buf[pos : pos + n]), pos + n
-
-
-def _length(buf: memoryview, pos: int, width: int) -> Tuple[int, int]:
-    raw, pos = _take(buf, pos, width)
-    return int.from_bytes(raw, "big"), pos
-
-
-def _unpack(buf: memoryview, pos: int) -> Tuple[Any, int]:
-    op, pos = _take(buf, pos, 1)
-    b = op[0]
-    if 0xA0 <= b <= 0xBF:
-        kind, n = "str", b & 0x1F
-    elif 0x90 <= b <= 0x9F:
-        kind, n = "arr", b & 0x0F
-    elif 0x80 <= b <= 0x8F:
-        kind, n = "map", b & 0x0F
-    else:
-        widths = {
-            0xD9: ("str", 1), 0xDA: ("str", 2), 0xDB: ("str", 4),
-            0xDC: ("arr", 2), 0xDD: ("arr", 4),
-            0xDE: ("map", 2), 0xDF: ("map", 4),
-        }
-        if b not in widths:
-            raise ValueError(f"unsupported MessagePack type 0x{b:02x}")
-        kind, width = widths[b]
-        n, pos = _length(buf, pos, width)
-    if kind == "str":
-        raw, pos = _take(buf, pos, n)
-        return raw.decode("utf-8"), pos
-    if kind == "arr":
-        items = []
-        for _ in range(n):
-            item, pos = _unpack(buf, pos)
-            items.append(item)
-        return items, pos
-    out = {}
-    for _ in range(n):
-        k, pos = _unpack(buf, pos)
-        v, pos = _unpack(buf, pos)
-        out[k] = v
-    return out, pos

@@ -20,9 +20,12 @@ then deletes WAL ``index`` (lsm_tree.rs:854-921); compaction outputs take
 older and newer tables.
 
 The port has open/recover, set/delete/get, flush (sorted and hash
-memtables), compact (with the coalescer's ``merge_async``) and the
-journal; the arena memtable and the scan, secondary-index, query and
-digest methods of dbeel_tpu's LSMTree are later slices (ROADMAP.md).
+memtables), compact (with the coalescer's ``merge_async``), the
+journal, and the scan methods: ``iter``, ``scan_page`` and
+``scan_filter_page`` over a cached columnar ``ScanStage`` whose
+numeric filter leaves run on the tree's ``device`` (ops/query_kernels,
+K8).  The arena memtable, the secondary-index runs and the digest
+methods of dbeel_tpu's LSMTree are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import functools
 import logging
 import os
 import re
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import AsyncIterator, Callable, List, Optional, Sequence, Tuple
 
 from .. import flow_events
 from ..errors import (
@@ -42,6 +45,7 @@ from ..errors import (
     ShardDegraded,
     TooManyWalFiles,
 )
+from ..utils import msgpack_codec
 from ..utils.event import LocalEvent
 from ..utils.timestamps import now_nanos
 from . import checksums
@@ -111,6 +115,24 @@ class SSTableList:
             self.drained.notify()
 
 
+class ScanSnapshot:
+    """Point-in-time scan view (see LSMTree.scan_snapshot)."""
+
+    def __init__(self, memtable_items, sstables: SSTableList) -> None:
+        self.memtable_items = memtable_items
+        self._sstables = sstables
+        self._released = False
+
+    @property
+    def tables(self):
+        return self._sstables.tables
+
+    def release(self) -> None:
+        if not self._released:
+            self._released = True
+            self._sstables.release()
+
+
 class LSMTree:
     def __init__(
         self,
@@ -161,6 +183,14 @@ class LSMTree:
         # No strategy: compaction on ``device``, the card by default
         # (raises without one).
         self.strategy = strategy or get_strategy("auto", device=device)
+        # Where the scan stage's filter kernels run (None = the card;
+        # resolved at the first numeric leaf that reaches a kernel).
+        self.device = device
+        # The cached scan stage of the current tree state, its state
+        # token and the sstable list it holds one reader ref on.
+        self._scan_stage = None
+        self._scan_stage_key: Optional[tuple] = None
+        self._scan_stage_list: Optional[SSTableList] = None
         # Secondary-index DDL, stamped on the strategy per merge as in
         # dbeel_tpu; the port's strategies refuse a non-empty list.
         self.index_fields: Optional[List[str]] = None
@@ -444,6 +474,7 @@ class LSMTree:
             # corrupt (or merely stale) pages.
             self.cache.invalidate_file((DATA_FILE_EXT, table.index))
             self.cache.invalidate_file((INDEX_FILE_EXT, table.index))
+        self._drop_scan_stage()
         retire = asyncio.ensure_future(
             self._retire_quarantined_files(old_list, table)
         )
@@ -461,6 +492,21 @@ class LSMTree:
     ) -> None:
         self.durability["checksum_failures"] += 1
         self.quarantine_table(table, str(exc))
+
+    def quarantine_by_exception(self, exc, tables) -> bool:
+        """Attribute a bulk-read CorruptedFile to its source table by
+        the ``.path`` the verifier stamped and quarantine it — the
+        compaction merge's and the scan paths' readers are
+        table-agnostic.  Returns True when a victim was identified and
+        quarantined."""
+        bad = self._table_index_from_path(getattr(exc, "path", None))
+        if bad is None:
+            return False
+        victim = next((t for t in tables if t.index == bad), None)
+        if victim is None:
+            return False
+        self._handle_table_corruption(victim, exc)
+        return True
 
     async def _retire_quarantined_files(self, old_list, table) -> None:
         # Reader drain first (same contract as compaction input
@@ -493,6 +539,7 @@ class LSMTree:
             # the next open()'s recovery listing.
             self._disposing_wal.join_disposed()
             self._disposing_wal = None
+        self._drop_scan_stage()
         for t in self._sstables.tables:
             t.close()
 
@@ -783,6 +830,7 @@ class LSMTree:
                 )
                 self._wal = new_wal
                 self._index = next_index
+                self._drop_scan_stage()
                 self.flush_start_event.notify()
 
             flush_index, old_wal = self._pending_flush
@@ -816,6 +864,7 @@ class LSMTree:
             )
             self._flushing = None
             self._pending_flush = None
+            self._drop_scan_stage()
             old_wal.delete()  # disposal completes off-loop
             self._disposing_wal = old_wal
         finally:
@@ -971,12 +1020,7 @@ class LSMTree:
             # quarantine the offending input so the next cycle never
             # re-feeds it, then surface to the compaction loop's
             # error handling.
-            bad = self._table_index_from_path(getattr(e, "path", None))
-            victim = next(
-                (t for t in inputs if t.index == bad), None
-            )
-            if victim is not None:
-                self._handle_table_corruption(victim, e)
+            self.quarantine_by_exception(e, inputs)
             raise
         finally:
             for t in inputs_nocache:
@@ -1124,6 +1168,9 @@ class LSMTree:
         # output (max(inputs)+1) below any table flushed DURING this
         # compaction, so reversed() keeps probing newest data first.
         self._sstables = SSTableList(survivors)
+        # A cached scan stage holds a reader ref on the old list: drop
+        # it now, or the drain below would wait for the next scan.
+        self._drop_scan_stage()
 
         # Reader drain before deleting inputs (1141-1145).
         while old_list.readers > 0:
@@ -1148,6 +1195,608 @@ class LSMTree:
             None, _dispose_inputs
         )
         self.flow.notify(flow_events.FlowEvent.COMPACTION_DONE)
+
+    # ------------------------------------------------------------------
+    # Iteration (lsm_tree.rs:141-282) — sstables oldest→newest, then the
+    # memtables; duplicates possible, consumers resolve by timestamp.
+    # ------------------------------------------------------------------
+
+    async def iter_filter(
+        self,
+        filter_fn: Optional[Callable[[bytes, bytes, int], bool]] = None,
+    ) -> AsyncIterator[Tuple[bytes, bytes, int]]:
+        # Snapshot the memtables NOW, before any await, exactly like the
+        # reference snapshots them at AsyncIter construction (lsm_tree.rs
+        # :155-172) — a flush completing mid-iteration must not make
+        # entries vanish from the view.
+        memtable_items: List[Tuple[bytes, bytes, int]] = []
+        if self._flushing is not None:
+            memtable_items.extend(
+                (k, v, ts)
+                for k, (v, ts) in self._flushing.sorted_items()
+            )
+        memtable_items.extend(
+            (k, v, ts) for k, (v, ts) in self._active.sorted_items()
+        )
+        snapshot = self._sstables
+        snapshot.acquire()
+        try:
+            for table in snapshot.tables:
+                count = 0
+                try:
+                    for key, value, ts in table.entries():
+                        if filter_fn is None or filter_fn(
+                            key, value, ts
+                        ):
+                            yield key, value, ts
+                        count += 1
+                        if count % 256 == 0:
+                            await asyncio.sleep(0)
+                except CorruptedFile as e:
+                    # Scan-path corruption: quarantine the source
+                    # table (repair owns the heal) and re-raise — a
+                    # partial scan must not masquerade as a complete
+                    # one (AE digests would claim authority over
+                    # entries the scan never saw).
+                    self.quarantine_by_exception(
+                        e, snapshot.tables
+                    )
+                    raise
+            for key, value, ts in memtable_items:
+                if filter_fn is None or filter_fn(key, value, ts):
+                    yield key, value, ts
+        finally:
+            snapshot.release()
+
+    def iter(self) -> AsyncIterator[Tuple[bytes, bytes, int]]:
+        return self.iter_filter(None)
+
+    # ------------------------------------------------------------------
+    # Streaming scan pages: batched columnar iteration through a
+    # cached ScanStage — the vectorized range-digest staging
+    # generalized to ordered, value-bearing pages.  Chunks of one
+    # cursor walk hit the same stage; any write or table-list change
+    # invalidates it.
+    # ------------------------------------------------------------------
+
+    def _scan_stage_token(self) -> tuple:
+        return (
+            tuple(t.index for t in self._sstables.tables),
+            id(self._active),
+            self._appends_since_swap,
+            len(self._active),
+            self._flushing is not None,
+        )
+
+    def _drop_scan_stage(self) -> None:
+        """Every write-state change (flush swap, table-list swap,
+        quarantine, close) drops the cached stage HERE — not lazily on
+        the next scan — because compaction and quarantine retirement
+        wait for the old list's readers to drain, and a cached stage's
+        reader ref with no scan running would stall them."""
+        if self._scan_stage is not None:
+            self._scan_stage = None
+            self._scan_stage_key = None
+            self._scan_stage_list.release()
+            self._scan_stage_list = None
+
+    async def _current_scan_stage(self):
+        """The cached vectorized stage for the CURRENT tree state, or
+        None (guard tripped — caller uses the per-entry path).  Holds
+        one reader ref on the staged sstable list so compaction
+        cannot retire the files under later pages of the same
+        stage."""
+        from . import scan_stage as ss
+
+        token = self._scan_stage_token()
+        if (
+            self._scan_stage is not None
+            and self._scan_stage_key == token
+        ):
+            return self._scan_stage
+        self._drop_scan_stage()
+        total = self.memtable_entries + self.sstable_entry_count()
+        if total < ss.MIN_VECTORIZED_ENTRIES:
+            return None
+        snap = self.scan_snapshot()
+        try:
+            stage = await asyncio.get_event_loop().run_in_executor(
+                None,
+                ss.build_stage,
+                snap.memtable_items,
+                snap.tables,
+                self.device,
+            )
+        except CorruptedFile as e:
+            self.quarantine_by_exception(e, snap.tables)
+            snap.release()
+            raise
+        except BaseException:
+            snap.release()
+            raise
+        if stage is None:
+            snap.release()
+            return None
+        if self._scan_stage_token() != token:
+            # A write or swap landed during the executor build: the
+            # stage is already stale — serve this one page from it
+            # (it is a valid point-in-time view) but don't cache it.
+            # The snapshot ref is released by scan_page's finally.
+            stage._hold = snap
+            return stage
+        if (
+            self._scan_stage is not None
+            and self._scan_stage_key == token
+        ):
+            # A concurrent cold-cache build won the race and already
+            # cached an identical stage: use it and release OUR
+            # snapshot ref — overwriting the cache here would orphan
+            # the winner's reader ref and stall compaction's reader
+            # drain forever.
+            snap.release()
+            return self._scan_stage
+        self._drop_scan_stage()  # release any stale cached ref
+        self._scan_stage = stage
+        self._scan_stage_key = token
+        self._scan_stage_list = snap._sstables  # cache owns the ref
+        snap._released = True  # ownership moved to the cache
+        return stage
+
+    async def scan_page(
+        self,
+        start: int,
+        end: int,
+        start_after,
+        prefix,
+        limit: int,
+        max_bytes: int,
+        with_values: bool,
+    ) -> Tuple[list, bool]:
+        """One ordered scan page: up to ``limit`` entries /
+        ``max_bytes`` emitted bytes of [key, value|nil, ts] with
+        hash(key) in the wrap range [start, end), key > start_after
+        (and starting with ``prefix`` when given), ascending by key;
+        newest entry per key, tombstones included as value=b"".
+        Returns (entries, more).  Vectorized through the cached
+        ScanStage; per-entry fallback otherwise."""
+        stage = await self._current_scan_stage()
+        if stage is not None:
+            # Pin the staged table files across the materialization's
+            # cooperative yields: a flush/compaction swap during an
+            # await drops the CACHE's ref, and without this per-call
+            # ref the input files could be retired mid-read.
+            hold_list = None
+            if stage._hold is None and stage is self._scan_stage:
+                hold_list = self._scan_stage_list
+                if hold_list is not None:
+                    hold_list.acquire()
+            try:
+                # Selection is pure numpy over the remaining
+                # keyspace.  Only genuinely large stages go off-loop
+                # (mask/cumsum there would stall point ops for ms);
+                # below the threshold the executor hand-off latency
+                # (~ms of idle epoll per hop, measured) costs more
+                # than the selection itself.
+                if stage.n >= 200_000:
+                    pos, more = await asyncio.get_event_loop(
+                    ).run_in_executor(
+                        None,
+                        stage.select,
+                        start, end, start_after, prefix, limit,
+                        max_bytes, with_values,
+                    )
+                else:
+                    pos, more = stage.select(
+                        start, end, start_after, prefix, limit,
+                        max_bytes, with_values,
+                    )
+                entries: list = []
+                for j in range(0, len(pos), 512):
+                    entries.extend(
+                        stage.entries_at(
+                            pos[j : j + 512], with_values
+                        )
+                    )
+                    # Yield between slices of value reads so point
+                    # ops interleave within a large page.
+                    await asyncio.sleep(0)
+                return entries, more
+            except CorruptedFile as e:
+                # Stage-read corruption (value-page CRC): quarantine
+                # the attributed table so repair starts NOW, then
+                # error the page retryably — the coordinator's
+                # stream dies and the client resumes elsewhere.
+                self.quarantine_by_exception(
+                    e,
+                    [
+                        s.table
+                        for s in stage.sources
+                        if not isinstance(s, list)
+                    ],
+                )
+                raise
+            finally:
+                if hold_list is not None:
+                    hold_list.release()
+                if stage._hold is not None:
+                    stage._hold.release()
+                    stage._hold = None
+        return await self._scan_page_fallback(
+            start, end, start_after, prefix, limit, max_bytes,
+            with_values,
+        )
+
+    async def scan_filter_page(
+        self,
+        start: int,
+        end: int,
+        start_after,
+        prefix,
+        limit: int,
+        max_bytes: int,
+        with_values: bool,
+        where,
+        agg,
+        mode: str,
+    ) -> tuple:
+        """One filtered/aggregated scan page (query compute plane):
+        ``(entries, more, cover, scanned_rows,
+        scanned_bytes, agg_partial, eval_path)``.
+
+        The window advances by bytes SCANNED (key+value+overhead of
+        every arc-member row examined), so a selective predicate
+        still pages in bounded work and the ``cover`` key lets the
+        coordinator resume past a window that matched nothing.
+        ``mode`` is the peer-spec contract (query.MODE_DROP /
+        MODE_MARK — see query.py): drop emits matching rows only
+        (or, with ``agg``, just a partial state); mark emits EVERY
+        newest-per-key row as [key, payload, ts, flag] so the
+        coordinator's newest-wins dedup decides acceptance.
+        ``eval_path`` says which evaluator ran ("device" / "numpy" /
+        "cached" / "golden") for the stats plane: "device" when a
+        numeric leaf ran a filter kernel on the tree's ``device`` (the
+        card, or with ``"cpu"`` the kernel's plain version)."""
+        from .. import query as Q
+        from . import query_vec
+
+        stage = await self._current_scan_stage()
+        if stage is None:
+            return await self._scan_filter_page_fallback(
+                start, end, start_after, prefix, limit, max_bytes,
+                with_values, where, agg, mode,
+            )
+        hold_list = None
+        if stage._hold is None and stage is self._scan_stage:
+            hold_list = self._scan_stage_list
+            if hold_list is not None:
+                hold_list.acquire()
+        try:
+            # The secondary-index plan of dbeel_tpu (index runs
+            # consulted for the candidate rows) waits for the index
+            # slice; the port's strategies refuse index_fields, so a
+            # tree never has them yet.
+            if self.index_fields:
+                raise NotImplementedError(
+                    "index-planned scan pages are not ported yet "
+                    "(ROADMAP.md Queue 1 item 3: secondary indexes)"
+                )
+            need_build = bool(
+                Q.spec_fields(where, agg)
+                - set(stage._field_cols)
+            ) or (
+                # A mask-cache miss re-evaluates the whole tree —
+                # including any O(n) scalar-leaf loops (trailing-NUL
+                # operands, >2^53 ints) — so it goes off-loop even
+                # when every column already exists.
+                where is not None
+                and msgpack_codec.packb(where) not in stage._mask_cache
+            )
+
+            def _select():
+                pos, more, sbytes = stage.select_window(
+                    start, end, start_after, prefix, limit,
+                    max_bytes,
+                )
+                mask, path = query_vec.eval_where(stage, where)
+                sub = mask[pos]
+                matched = pos[sub]
+                partial = None
+                if agg is not None and mode == Q.MODE_DROP:
+                    partial = query_vec.agg_partial_for(
+                        stage, matched, agg
+                    )
+                return pos, more, sbytes, sub, matched, partial, path
+
+            # The first evaluation of a spec decodes the targeted
+            # field for EVERY staged row (the batched column build):
+            # always off-loop.  Re-evaluations are cached-mask
+            # lookups plus a window searchsorted — loop-side below
+            # the same size bar scan_page uses.  Off-loop, the K8
+            # launches run on the executor thread's current stream and
+            # copy their masks back on it before numpy reads them.
+            if need_build or stage.n >= 200_000:
+                (
+                    pos, more, sbytes, sub, matched, partial, path,
+                ) = await asyncio.get_event_loop().run_in_executor(
+                    None, _select
+                )
+            else:
+                (
+                    pos, more, sbytes, sub, matched, partial, path,
+                ) = _select()
+            cover = (
+                stage.key_at(int(pos[-1])) if pos.size else None
+            )
+            if mode == Q.MODE_DROP:
+                entries: list = []
+                if agg is None:
+                    for j in range(0, len(matched), 512):
+                        entries.extend(
+                            stage.entries_at(
+                                matched[j : j + 512], with_values
+                            )
+                        )
+                        await asyncio.sleep(0)
+            else:  # mark: every newest-per-key row, flagged
+                keys = stage.keys[pos].tolist()
+                ts = stage.ts[pos].tolist()
+                vl = stage.vlen[pos].tolist()
+                flags = sub.tolist()
+                fcol = (
+                    query_vec.field_column(stage, agg["field"])
+                    if agg is not None and agg.get("field")
+                    else None
+                )
+                entries = []
+                for i, p in enumerate(pos.tolist()):
+                    if vl[i] == 0:
+                        entries.append([keys[i], b"", ts[i], 0])
+                        continue
+                    if not flags[i]:
+                        entries.append([keys[i], None, ts[i], 0])
+                        continue
+                    if agg is not None:
+                        payload = (
+                            fcol.typed_at(p)
+                            if fcol is not None
+                            else None
+                        )
+                        if isinstance(payload, bytes):
+                            payload = None  # non-numeric: never folds
+                    elif with_values:
+                        payload = query_vec._value_bytes(stage, p)
+                    else:
+                        payload = None
+                    entries.append([keys[i], payload, ts[i], 1])
+                    if i and i % 512 == 0:
+                        await asyncio.sleep(0)
+            return (
+                entries,
+                more,
+                cover,
+                int(pos.size),
+                int(sbytes),
+                partial,
+                path,
+            )
+        except CorruptedFile as e:
+            # Column build / value materialization hit a flipped
+            # page: quarantine the attributed table so repair starts
+            # NOW, then error retryably (the coordinator stream dies
+            # and the client resumes elsewhere) — same contract as
+            # the unfiltered staged path.
+            self.quarantine_by_exception(
+                e,
+                [
+                    s.table
+                    for s in stage.sources
+                    if not isinstance(s, list)
+                ],
+            )
+            raise
+        finally:
+            if hold_list is not None:
+                hold_list.release()
+            if stage._hold is not None:
+                stage._hold.release()
+                stage._hold = None
+
+    async def _scan_filter_page_fallback(
+        self,
+        start: int,
+        end: int,
+        start_after,
+        prefix,
+        limit: int,
+        max_bytes: int,
+        with_values: bool,
+        where,
+        agg,
+        mode: str,
+    ) -> tuple:
+        """Golden per-entry filtered page (tiny trees / guard trips):
+        the reference evaluator the vectorized path is byte-identical
+        to, with the same scanned-window accounting."""
+        from ..utils.murmur import hash_bytes as _hash_bytes
+        from .. import query as Q
+        from . import scan_stage as ss
+
+        newest: dict = {}
+        async for key, value, ts in self.iter_filter(None):
+            if start_after is not None and key <= start_after:
+                continue
+            if prefix and not key.startswith(prefix):
+                continue
+            h = _hash_bytes(key)
+            width = (end - start) & 0xFFFFFFFF
+            if width != 0 and ((h - start) & 0xFFFFFFFF) >= width:
+                continue
+            prev = newest.get(key)
+            if prev is None or ts > prev[1]:
+                newest[key] = (value, ts)
+        items = sorted(newest.items())
+        entries: list = []
+        partial_state = None
+        agg_rows: list = []
+        scanned = 0
+        used = 0
+        more = False
+        cover = None
+        for i, (key, (value, ts)) in enumerate(items):
+            # Window cut mirrors ScanStage.select_window exactly
+            # (the byte-identical contract includes covers and
+            # scanned accounting): rows accumulate until the first
+            # one that REACHES the budget, inclusive.
+            cost = len(key) + ss.ENTRY_OVERHEAD + len(value)
+            used += cost
+            scanned += 1
+            cover = key
+            stop = scanned >= limit or used >= max_bytes
+            matched = Q.match_entry(where, key, value)
+            if mode == Q.MODE_DROP:
+                if matched:
+                    if agg is not None:
+                        agg_rows.append((key, value))
+                    elif with_values:
+                        entries.append([key, value, ts])
+                    else:
+                        entries.append([key, None, ts])
+            else:  # mark
+                if len(value) == 0:
+                    entries.append([key, b"", ts, 0])
+                elif not matched:
+                    entries.append([key, None, ts, 0])
+                elif agg is not None:
+                    x = Q.field_value(
+                        Q.decode_doc(value), agg["field"]
+                    ) if agg.get("field") else None
+                    if isinstance(x, (str, bytes)):
+                        x = None
+                    entries.append([key, x, ts, 1])
+                elif with_values:
+                    entries.append([key, value, ts, 1])
+                else:
+                    entries.append([key, None, ts, 1])
+            if stop:
+                more = i + 1 < len(items)
+                break
+        if agg is not None and mode == Q.MODE_DROP:
+            group = agg["group"]
+            if group:
+                groups: dict = {}
+                for key, value in agg_rows:
+                    x = (
+                        Q.field_value(
+                            Q.decode_doc(value), agg["field"]
+                        )
+                        if agg.get("field")
+                        else None
+                    )
+                    if not Q.contributes(agg["op"], x):
+                        continue
+                    g = key[:group]
+                    st = groups.get(g)
+                    if st is None:
+                        st = groups[g] = Q.agg_new()
+                    Q.agg_fold(
+                        st,
+                        agg["op"],
+                        None if agg["op"] == "count" else x,
+                    )
+                partial_state = [
+                    [g, st] for g, st in sorted(groups.items())
+                ]
+            else:
+                partial_state = Q.agg_new()
+                for key, value in agg_rows:
+                    x = (
+                        Q.field_value(
+                            Q.decode_doc(value), agg["field"]
+                        )
+                        if agg.get("field")
+                        else None
+                    )
+                    if not Q.contributes(agg["op"], x):
+                        continue
+                    Q.agg_fold(
+                        partial_state,
+                        agg["op"],
+                        None if agg["op"] == "count" else x,
+                    )
+        return (
+            entries, more, cover, scanned, used, partial_state,
+            "golden",
+        )
+
+    async def _scan_page_fallback(
+        self,
+        start: int,
+        end: int,
+        start_after,
+        prefix,
+        limit: int,
+        max_bytes: int,
+        with_values: bool,
+    ) -> Tuple[list, bool]:
+        """Per-entry page (tiny trees / no native lib / guard trips):
+        one full newest-wins walk, then the page cut.  Byte-identical
+        ordering and dedup to the staged path."""
+        from ..utils.murmur import hash_bytes as _hash_bytes
+        from . import scan_stage as ss
+
+        newest: dict = {}
+        async for key, value, ts in self.iter_filter(None):
+            if start_after is not None and key <= start_after:
+                continue
+            if prefix and not key.startswith(prefix):
+                continue
+            h = _hash_bytes(key)
+            width = (end - start) & 0xFFFFFFFF
+            if width != 0 and ((h - start) & 0xFFFFFFFF) >= width:
+                continue
+            prev = newest.get(key)
+            if prev is None or ts > prev[1]:
+                newest[key] = (value, ts)
+        entries: list = []
+        used = 0
+        items = sorted(newest.items())
+        for i, (key, (value, ts)) in enumerate(items):
+            vlen = len(value)
+            cost = len(key) + ss.ENTRY_OVERHEAD + (
+                vlen if with_values else 0
+            )
+            if entries and (
+                used + cost > max_bytes or len(entries) >= limit
+            ):
+                return entries, True
+            used += cost
+            if vlen == 0:
+                entries.append([key, b"", ts])
+            elif with_values:
+                entries.append([key, value, ts])
+            else:
+                entries.append([key, None, ts])
+            if len(entries) >= limit and i + 1 < len(items):
+                return entries, True
+        return entries, False
+
+    def scan_snapshot(self) -> "ScanSnapshot":
+        """Synchronous point-in-time view for OFF-LOOP bulk scans
+        (vectorized anti-entropy digests): memtable items materialized
+        now, sstable list acquired so compaction cannot delete the
+        files under the scan.  Caller MUST release()."""
+        items: List[Tuple[bytes, bytes, int]] = []
+        if self._flushing is not None:
+            items.extend(
+                (k, v, ts)
+                for k, (v, ts) in self._flushing.sorted_items()
+            )
+        items.extend(
+            (k, v, ts) for k, (v, ts) in self._active.sorted_items()
+        )
+        snapshot = self._sstables
+        snapshot.acquire()
+        return ScanSnapshot(items, snapshot)
 
     # ------------------------------------------------------------------
 

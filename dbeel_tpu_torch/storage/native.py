@@ -5,9 +5,10 @@ compaction pipeline calls.
 of either Python package: it is built with ``make -C native`` into
 ``native/build/libdbeel_native.so`` on first use (under an flock, so
 concurrent processes wait for one build) and loaded as it is.  Only the
-prototypes that ``ops/pipeline.py`` calls are bound here: O_DIRECT file
-reads, prefix staging, the gather writer, the packed run-id decode and
-the batch bloom build.
+prototypes the port calls are bound here: O_DIRECT file reads, prefix
+staging, the gather writer, the packed run-id decode and the batch
+bloom build (``ops/pipeline.py``), and the batch murmur3 hash the scan
+stage keys its arc filter on (``storage/range_digest.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ _NATIVE_DIR = os.path.join(
 )
 LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libdbeel_native.so")
 
-# The symbols the pipeline needs; a library without them is not used.
+# The symbols the port needs; a library without them is not used.
 _REQUIRED = (
     "dbeel_read_file",
     "dbeel_stage_prefixes",
@@ -39,6 +40,7 @@ _REQUIRED = (
     "dbeel_writer_abort",
     "dbeel_pipe_decode",
     "dbeel_bloom_add_batch",
+    "dbeel_murmur3_32_batch",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -142,6 +144,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     # typed ctypes arguments (ops/pipeline.py).
     lib.dbeel_pipe_decode.restype = ctypes.c_int
     lib.dbeel_bloom_add_batch.restype = None
+    lib.dbeel_murmur3_32_batch.restype = None
+    lib.dbeel_murmur3_32_batch.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_uint64,
+        ctypes.c_uint32,
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
     if hasattr(lib, "dbeel_murmur3_32"):
         lib.dbeel_murmur3_32.restype = ctypes.c_uint32
         lib.dbeel_murmur3_32.argtypes = [

@@ -21,7 +21,12 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 for name in ("dbeel_tpu_torch.server.coalescer",
-             "dbeel_tpu_torch.server.tasks", "dbeel_tpu_torch.ops.sort"):
+             "dbeel_tpu_torch.server.tasks", "dbeel_tpu_torch.ops.sort",
+             "dbeel_tpu_torch.query", "dbeel_tpu_torch.storage.scan_stage",
+             "dbeel_tpu_torch.storage.query_vec",
+             "dbeel_tpu_torch.storage.range_digest",
+             "dbeel_tpu_torch.ops.query_kernels",
+             "dbeel_tpu_torch.utils.msgpack_codec"):
     assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules
