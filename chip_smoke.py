@@ -5,20 +5,24 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``--only kernels,mesh`` runs phase 1 and the named phases alone —
+e.g. ``--only mesh`` on a host with four cards, where phase 7's
+partitions take one card each.)
+
 Phases (any failure exits non-zero):
 
   1. facts    — card name and power limit, CUDA and nvcc versions, SM
                 count; builds the CUDA kernels (one nvcc per source,
                 sm_90a) and the native host runtime (make -C native)
                 side by side.
-  2. kernels  — K1-K6 and K8a-K8d at the shapes the main path gives
+  2. kernels  — K1-K9b at the shapes the main path gives
                 them, on adversarial data, each bit-equal to its plain
                 PyTorch version on the card (K8c's sum within
                 n * 2^-52 * sum|x| of math.fsum); times the kernel, the
                 plain version and one library call with CUDA events.
   3. compaction — bench scale: 8 runs of 1.25M docs (16 B keys, 64 B
                 values, bench.py's generator recipe, seed 7) merged with
-                get_strategy("auto") through the pipeline (K1), plus a
+                get_strategy("device") through the pipeline (K1), plus a
                 dense-cluster keyspace whose partitions keep the exact
                 2-word operand (K2); SHA-256 equal to the host merge.
   4. lsm      — LSMTree write → flush → major compact → get on two
@@ -44,14 +48,34 @@ Phases (any failure exits non-zero):
                 pages them (limit 65536, 256 KiB), each held against a
                 dict oracle; the numeric leaves run on K8a (4 launches)
                 and K8b (1).
+  7. mesh     — the distributed backend over 4 partitions placed
+                round-robin on min(4, cards) cards (all on cuda:0 with
+                one card): mesh_wide — BASELINE.json configs[3], one
+                LSMTree (capacity 8192) takes 524288 writes of 16 B keys
+                drawn from 393216 ids with msgpack values {"v", "pad"},
+                64 flushed tables (~50 MB) compacted by the sample sort
+                (K5 x8, K9a x4, K9b x4, no overflow), SHA-256 equal to
+                the cpu merge of a copy, oracle gets, and K7 on the same
+                columns (mesh_k7) equal to the mesh and numpy; mesh_hot —
+                24 B keys with a hot 16 B prefix group, no overflow,
+                equal to numpy after the long-key fix-up; mesh_skew —
+                one shared first word, overflow, one fallback to K4 on
+                the first partition's card, equal to numpy; mesh_big —
+                phase 3's 10M docs through the mesh pipeline (K1, one
+                slot per partition), SHA-256 equal to phase 3's merge.
 
-The main path is eight runs — the bench merge, the dense merge, the two
-trees' major compactions, the shards' writes with their flushes, the
-shards' compaction, the scan collection's compaction and its filtered
-scans.  The kernel launch counters are zeroed just before each and
-read just after it, and reported per run; phase 2's comparison
-launches and the traced reruns (run after their counts are read) do
-not count.
+Phases 3-6 run on get_strategy("device"), so their routes hold on a
+host with several cards, where get_strategy("auto") is the distributed
+backend (asserted: "device" on one card, "distributed" on several).
+
+The main path is thirteen runs — the bench merge, the dense merge, the
+two trees' major compactions, the shards' writes with their flushes,
+the shards' compaction, the scan collection's compaction and its
+filtered scans, and the mesh phase's mesh_wide compaction, its K7
+cross-check, mesh_hot, mesh_skew and mesh_big.  The kernel launch
+counters are zeroed just before each and read just after it, and
+reported per run; phase 2's comparison launches, the cross-checks and
+the traced reruns (run after their counts are read) do not count.
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the contract line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of
@@ -95,6 +119,15 @@ COMPACTION_FACTOR = 2
 SCAN_DOCS = 1_000_000
 SCAN_LIMIT = 65536
 SCAN_MAX_BYTES = 256 << 10
+# The mesh phase: 4 partitions (the shards axis); BASELINE.json
+# configs[3]'s wide merge — 64 flushes of the default 8192-entry
+# memtable, 16 B keys drawn with replacement from 393216 ids so the
+# tables overlap; the long-key hot-group shape of __graft_entry__.py.
+MESH_PARTS = 4
+WIDE_OPS = 64 * 8192
+WIDE_IDS = 393_216
+HOT_KEYS = 32768
+SKEW_KEYS = 65536
 
 
 def log(msg: str) -> None:
@@ -151,6 +184,7 @@ def phase_facts(torch):
         raise RuntimeError("native library did not load")
     _cuda.lib()
     _cuda.query_lib()
+    _cuda.dist_lib()
     log("build: " + ", ".join(f"{k} {v:.2f}s" for k, v in sorted(took.items()))
         + f" (all {time.perf_counter() - t0:.2f}s, side by side)")
     for name in _cuda.SOURCES:
@@ -232,9 +266,11 @@ def phase_kernels(torch, np):
         return err
 
     def record(name, fn, replaces, kernel, plain, library, nbytes, ops,
-               module="bitonic", check=None):
+               module="bitonic", check=None, source=None, wrapper=None):
         """``check(got, want)`` returns the max abs error within its
-        stated tolerance and raises outside it; default: bit-equal."""
+        stated tolerance and raises outside it; default: bit-equal.
+        ``source``/``wrapper`` default to csrc/<module>.cu and
+        ops/<module>.py."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -250,8 +286,9 @@ def phase_kernels(torch, np):
         row = {
             "name": name,
             "route": "cuda",
-            "source": f"dbeel_tpu_torch/csrc/{module.split('_')[0]}.cu",
-            "wrapper": f"dbeel_tpu_torch/ops/{module}.py:{fn}",
+            "source": source
+            or f"dbeel_tpu_torch/csrc/{module.split('_')[0]}.cu",
+            "wrapper": f"dbeel_tpu_torch/{wrapper or f'ops/{module}.py'}:{fn}",
             "replaces": replaces,
             "launches": 0,
             "bit_equal": check is None,
@@ -406,6 +443,101 @@ def phase_kernels(torch, np):
         j * k * p // 2 * stages6 * 3,
     )
     del pre6, key6
+
+    # K7 (9, 2^19): the mesh_wide merge's columns padded to a power of
+    # two — random words with most first words >= 0x80000000, a block
+    # of rows tied on all 8 key columns, a sentinel tail.
+    from dbeel_tpu_torch.ops import merge as M
+    from dbeel_tpu_torch.parallel import dist_merge as D
+
+    n = 1 << 19
+    c7 = rng.integers(0, 1 << 32, size=(9, n), dtype=np.uint64)
+    c7 = c7.astype(np.uint32)
+    c7[0, : n // 2] |= np.uint32(0x80000000)
+    c7[:8, n // 2: n // 2 + n // 8] = rng.integers(
+        0, 2, size=(8, n // 8), dtype=np.uint64
+    ).astype(np.uint32)
+    c7[8] = rng.permutation(n).astype(np.uint32)
+    c7[:, n - 5000:] = 0xFFFFFFFF
+    cols7 = T(c7)
+    key7 = as_signed(B._u64(cols7[0]) << 32 | B._u64(cols7[1]))
+    levels7 = n.bit_length() - 1
+    record(
+        "K7", "sort_dedup_kernel",
+        "dbeel_tpu/ops/merge.py:35 (_sort_kernel; _same_key_mask :42)",
+        lambda: M.sort_dedup_kernel(cols7),
+        lambda: M.sort_dedup_plain(cols7),
+        lambda: torch.sort(key7, stable=True),
+        cols7.numel() * 4 * 2 + n,
+        n // 2 * (levels7 * (levels7 + 1) // 2) * 8,
+        module="merge", source="dbeel_tpu_torch/csrc/bitonic.cu",
+    )
+    del cols7, key7
+
+    # K9a (128,): the gathered samples of 4 partitions — first words
+    # >= 0x80000000 and runs of equal samples across the splitter
+    # positions.
+    n_dev = MESH_PARTS
+    words9 = np.array([0, 5, 0x7FFFFFFF, 0x80000000, 0x80000001,
+                       0xC0000000, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint64)
+    smp = T(rng.choice(words9, size=n_dev * 32).astype(np.uint32))
+    for trial in range(8):
+        s_t = T(rng.choice(words9[trial % 4:], size=n_dev * 32)
+                .astype(np.uint32))
+        if bit_err("K9a", D.splitters_kernel(s_t, n_dev),
+                   D.splitters_plain(s_t, n_dev)):
+            raise AssertionError(f"K9a trial {trial}: splitters differ")
+    smp64 = B._u64(smp)
+    record(
+        "K9a", "splitters_kernel",
+        "dbeel_tpu/parallel/dist_merge.py:117 (_dist_kernel; body "
+        "_per_device :67, splitters :76-86)",
+        lambda: D.splitters_kernel(smp, n_dev),
+        lambda: D.splitters_plain(smp, n_dev),
+        lambda: torch.sort(smp64),
+        smp.numel() * 4 + (n_dev - 1) * 4,
+        smp.numel() * (smp.numel().bit_length() - 1),
+        module="dist", wrapper="parallel/dist_merge.py",
+    )
+
+    # K9b (131072, 9) → (4, 65568, 9): the wide cell's local stack,
+    # sorted, first words from a few values (ties across splitters,
+    # >= 0x80000000, 0xFFFFFFFF) and a sentinel tail; held at the wide
+    # capacity and at one small enough to overflow.
+    m9 = 131072
+    cap9 = int(m9 * 2.0 / n_dev) + 32
+    loc = rng.integers(0, 1 << 32, size=(m9, 9), dtype=np.uint64)
+    loc = loc.astype(np.uint32)
+    loc[:, 0] = rng.choice(words9, size=m9, p=[.05, .05, .2, .2, .2, .2,
+                                                 .05, .05])
+    loc[:, 4] = rng.integers(1, 64, size=m9).astype(np.uint32)
+    loc[m9 - 3000:] = 0xFFFFFFFF
+    loc[: m9 - 3000] = loc[: m9 - 3000][np.lexsort(loc[: m9 - 3000, :8].T[::-1])]
+    local9 = T(loc)
+    pos9 = torch.arange(n_dev * 32, device=dev) * m9 // (n_dev * 32)
+    spl9 = D.splitters_plain(local9[pos9, 0].contiguous(), n_dev)
+    for cap in (cap9, 20000):
+        if bit_err("K9b", D.bucket_scatter_kernel(local9, spl9, cap, n_dev),
+                   D.bucket_scatter_plain(local9, spl9, cap, n_dev)):
+            raise AssertionError(f"K9b capacity {cap}: send buffers differ")
+    over9 = int(D.bucket_scatter_kernel(local9, spl9, 20000, n_dev)[1].item())
+    if over9 <= 0:
+        raise AssertionError("K9b: the small capacity did not overflow")
+    k0_9 = B._u64(local9[:, 0])
+    spl64 = B._u64(spl9)
+    record(
+        "K9b", "bucket_scatter_kernel",
+        "dbeel_tpu/parallel/dist_merge.py:117 (_dist_kernel; body "
+        "_per_device :67, bucket + scatter :88-102)",
+        lambda: D.bucket_scatter_kernel(local9, spl9, cap9, n_dev),
+        lambda: D.bucket_scatter_plain(local9, spl9, cap9, n_dev),
+        lambda: torch.bucketize(k0_9, spl64),
+        local9.numel() * 4 + n_dev * cap9 * 9 * 4 + (n_dev - 1) * 4 + 4,
+        m9 * (n_dev - 1),
+        module="dist", wrapper="parallel/dist_merge.py",
+    )
+    log(f"K9b: the overflow check dropped {over9} rows at capacity 20000")
+    del local9, k0_9
 
     # K8a-K8d at the scan phase's shape: one staged float64 column of
     # SCAN_DOCS rows, 20% invalid, salted with NaN, +-inf, +-0.0,
@@ -670,9 +802,11 @@ def _profile_merge(torch, strategy, dir_path, indices):
         f"{busy_ms:.2f}ms = {busy_ms / (wall_s * 1e3):.4f} of wall; top: {top}")
 
 
-def phase_compaction(torch, np, card, total_keys, auto):
-    """``auto`` is the strategy under test (get_strategy("auto")).
-    Returns the launch counts of the bench and dense runs."""
+def phase_compaction(torch, np, card, total_keys, strategy):
+    """``strategy`` is the one-card strategy under test
+    (get_strategy("device")).  Returns the launch counts of the bench
+    and dense runs, and the bench runs (kept on disk for the mesh
+    phase) with the host merge's digest and the card's rate."""
     from dbeel_tpu_torch.ops import pipeline
     from dbeel_tpu_torch.storage.compaction import get_strategy
 
@@ -684,25 +818,25 @@ def phase_compaction(torch, np, card, total_keys, auto):
         f"{time.perf_counter() - t0:.1f}s")
     runs_before = pipeline.pipeline_stats["runs"]
     (dev_rate, dev_n, dev_sha, dev_s), bench = _main_path_run(
-        lambda: _merge(auto, d, idx, 101)
+        lambda: _merge(strategy, d, idx, 101)
     )
     log(f"launches bench: {bench}")
     if pipeline.pipeline_stats["runs"] == runs_before or bench["K1"] == 0:
         raise AssertionError("the bench merge did not run the pipeline/K1")
     cpu_rate, cpu_n, cpu_sha, cpu_s = _merge(get_strategy("cpu"), d, idx, 103)
-    log(f"compaction {total_keys} docs on {card}: auto (card pipeline) "
+    log(f"compaction {total_keys} docs on {card}: device (card pipeline) "
         f"{dev_rate:.0f} keys/s ({dev_s:.2f}s), cpu {cpu_rate:.0f} keys/s "
         f"({cpu_s:.2f}s), entries {dev_n}, sha256 equal: {dev_sha == cpu_sha}")
     if (dev_n, dev_sha) != (cpu_n, cpu_sha):
         raise AssertionError("card merge output differs from the cpu merge")
-    _profile_merge(torch, auto, d, idx)
-    shutil.rmtree(d)
+    _profile_merge(torch, strategy, d, idx)
+    runs_kept = dict(dir=d, idx=idx, sha=cpu_sha, n=cpu_n, rate=dev_rate)
 
     d = os.path.join(WORK, "dense")
     os.makedirs(d)
     idx = build_dense_runs(np, d, 1 << 18, 4)
     (_, n_a, sha_a, dense_s), dense = _main_path_run(
-        lambda: _merge(auto, d, idx, 101)
+        lambda: _merge(strategy, d, idx, 101)
     )
     log(f"launches dense: {dense}")
     _, n_b, sha_b, _ = _merge(get_strategy("cpu"), d, idx, 103)
@@ -713,7 +847,7 @@ def phase_compaction(torch, np, card, total_keys, auto):
     if dense["K2"] == 0:
         raise AssertionError(f"dense merge did not launch K2: {dense}")
     shutil.rmtree(d)
-    return {"bench": bench, "dense": dense}
+    return {"bench": bench, "dense": dense}, runs_kept
 
 
 # ----------------------------------------------------------------------
@@ -766,7 +900,7 @@ async def _drive_tree(d, ops, probe_keys, strategy):
     return bad, counts
 
 
-def phase_lsm(np, n_ops, auto):
+def phase_lsm(np, n_ops, strategy):
     """Two trees; returns the launch counts of each one's compaction."""
     rng = np.random.default_rng(3)
     # Tree a: 16-hex-digit keys (diverse leading 8 bytes), mostly fresh
@@ -798,10 +932,10 @@ def phase_lsm(np, n_ops, auto):
     ]
     t0 = time.perf_counter()
     bad_a, lsm_a = asyncio.run(
-        _drive_tree(os.path.join(WORK, "lsm_a"), ops_a, probe_a, auto)
+        _drive_tree(os.path.join(WORK, "lsm_a"), ops_a, probe_a, strategy)
     )
     bad_b, lsm_b = asyncio.run(
-        _drive_tree(os.path.join(WORK, "lsm_b"), ops_b, shared, auto)
+        _drive_tree(os.path.join(WORK, "lsm_b"), ops_b, shared, strategy)
     )
     log(f"lsm: {n_ops} ops over two trees, oracle mismatches "
         f"{bad_a + bad_b}, {time.perf_counter() - t0:.1f}s")
@@ -1360,9 +1494,391 @@ def check_scan_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 7: the distributed backend over a mesh of partitions
+# ----------------------------------------------------------------------
 
 
-def main() -> int:
+def mesh_devices(torch, n_parts=MESH_PARTS):
+    """Partition i on card i mod min(n_parts, cards): round-robin; with
+    one card every partition shares cuda:0."""
+    cards = min(n_parts, torch.cuda.device_count())
+    return [torch.device("cuda", i % cards) for i in range(n_parts)]
+
+
+class _MemRun:
+    """An in-memory sorted run with the SSTable column interface
+    (read_index_columns / read_data_bytes)."""
+
+    def __init__(self, np, entries):
+        from dbeel_tpu_torch.storage.entry import encode_entry
+
+        self._data = b"".join(encode_entry(k, v, ts) for k, v, ts in entries)
+        self._ks = np.array([len(k) for k, _, _ in entries], np.uint32)
+        self._fs = np.array([16 + len(k) + len(v) for k, v, _ in entries],
+                            np.uint32)
+        self._offs = np.zeros(len(entries), np.uint64)
+        if len(entries) > 1:
+            np.cumsum(self._fs[:-1], out=self._offs[1:])
+
+    def read_index_columns(self):
+        return self._offs, self._ks, self._fs
+
+    def read_data_bytes(self):
+        return self._data
+
+
+def wide_ops(np, n_ops=WIDE_OPS, n_ids=WIDE_IDS, seed=7):
+    """BASELINE.json configs[3]'s writes: 16 random bytes per id, ids
+    drawn with replacement, values msgpack {"v": j, "pad": "x" * L}
+    with L uniform in 0-100 (the port's codec)."""
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    rng = np.random.default_rng(seed)
+    blob = rng.integers(0, 256, size=n_ids * 16, dtype=np.uint8).tobytes()
+    ids = rng.integers(0, n_ids, size=n_ops).tolist()
+    pads = rng.integers(0, 101, size=n_ops).tolist()
+    return [
+        (blob[i * 16: i * 16 + 16], codec.packb({"v": j, "pad": "x" * pads[j]}))
+        for j, i in enumerate(ids)
+    ]
+
+
+def hot_runs(np, n_per_run=HOT_KEYS, seed=1):
+    """__graft_entry__.py's long-key shape: 4 runs of n 24-byte keys
+    plus a hot 16-byte-prefix group of n/16 keys per run."""
+    rng = np.random.default_rng(seed)
+    hot = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+    runs = []
+    for r in range(4):
+        raw = rng.integers(0, 256, (n_per_run, 24), dtype=np.uint8)
+        keys = {bytes(x) for x in raw}
+        keys.update(
+            hot + bytes(rng.integers(0, 256, 8, dtype=np.uint8))
+            for _ in range(n_per_run // 16)
+        )
+        runs.append(_MemRun(np, [(k, b"v%d" % r, 100 + r)
+                                 for k in sorted(keys)]))
+    return runs
+
+
+def skew_runs(np, n_per_run=SKEW_KEYS, seed=3):
+    """tests/test_dist_merge.py's skew: 3 runs whose keys all share the
+    first word (b"AAAA" + 12 random bytes), one timestamp."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for _ in range(3):
+        raw = rng.integers(0, 256, (n_per_run, 16), dtype=np.uint8)
+        raw[:, :4] = ord("A")
+        runs.append(_MemRun(np, [(k, b"v", 100)
+                                 for k in sorted({bytes(x) for x in raw})]))
+    return runs
+
+
+def _dist_delta(before):
+    from dbeel_tpu_torch.parallel import dist_merge
+
+    return {k: dist_merge.dist_stats[k] - v for k, v in before.items()}
+
+
+async def _drive_mesh_wide(np, mesh, n_ops):
+    """mesh_wide and mesh_k7: one tree's 64 overlapping tables merged
+    by the sample sort, then K7 on the same columns."""
+    from dbeel_tpu_torch.ops import _cuda, merge
+    from dbeel_tpu_torch.parallel import dist_merge
+    from dbeel_tpu_torch.storage import LSMTree, columnar
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+    from dbeel_tpu_torch.storage.entry import (
+        COMPACT_BLOOM_FILE_EXT, COMPACT_DATA_FILE_EXT, COMPACT_INDEX_FILE_EXT,
+        file_name,
+    )
+    from dbeel_tpu_torch.storage.sstable import SSTable
+
+    t0 = time.perf_counter()
+    ops = wide_ops(np, n_ops)
+    log(f"mesh_wide: {len(ops)} ops generated in "
+        f"{time.perf_counter() - t0:.1f}s")
+    d = os.path.join(WORK, "mesh", "wide")
+    strategy = dist_merge.DistributedMergeStrategy(mesh)
+    tree = LSMTree.open_or_create(d, strategy=strategy)
+    oracle = {}
+    t0 = time.perf_counter()
+    for j, (key, value) in enumerate(ops):
+        await tree.set_with_timestamp(key, value, 1_000 + j)
+        oracle[key] = value
+    await tree.flush()
+    await _settle()
+    t_write = time.perf_counter() - t0
+    layout = tree.sstable_indices_and_sizes()
+    tables = [i for i, _ in layout]
+    size = sum(sz for _, sz in layout)
+    ref = os.path.join(WORK, "mesh", "wide_ref")
+    shutil.copytree(d, ref, ignore=shutil.ignore_patterns("*.memtable"))
+    log(f"mesh_wide: {len(ops)} writes in {t_write:.1f}s "
+        f"({len(ops) / t_write:.0f} ops/s), {len(tables)} tables, "
+        f"{size} bytes")
+    if size >= strategy.PIPELINE_MIN_BYTES:
+        raise AssertionError("mesh_wide is not under PIPELINE_MIN_BYTES")
+
+    # Run mesh_wide: the major compaction on the mesh.
+    out_index = max(tables) + 1
+    before = dict(dist_merge.dist_stats)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    await tree.compact(tables, out_index, keep_tombstones=False)
+    t_compact = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    delta = _dist_delta(before)
+    log(f"mesh_wide: compaction of {len(tables)} tables on the mesh "
+        f"{t_compact:.2f}s; dist_stats {delta}; launches {counts}")
+    if delta != {"runs": 1, "fallbacks": 0, "overflow_rows": 0}:
+        raise AssertionError(f"mesh_wide did not run the sample sort: {delta}")
+
+    # The cpu strategy's merge of the copy, file by file.
+    srcs = [SSTable(ref, i, None) for i in tables]
+    cols = columnar.load_columns(srcs)
+    t0 = time.perf_counter()
+    get_strategy("cpu").merge(srcs, ref, out_index, None, False,
+                              tree.bloom_min_size)
+    t_cpu = time.perf_counter() - t0
+    for t in srcs:
+        t.close()
+    got, want = _table_digests(d), _table_digests(ref)
+    for ext, cext in (("data", COMPACT_DATA_FILE_EXT),
+                      ("index", COMPACT_INDEX_FILE_EXT),
+                      ("bloom", COMPACT_BLOOM_FILE_EXT)):
+        if got.get(file_name(out_index, ext)) != want.get(
+                file_name(out_index, cext)):
+            raise AssertionError(f"mesh_wide: {ext} differs from the cpu merge")
+    log(f"mesh_wide: .data/.index/.bloom SHA-256-equal to the cpu merge "
+        f"({t_cpu:.2f}s)")
+
+    rng = np.random.default_rng(7)
+    keys = list(oracle)
+    probe = [keys[int(i)] for i in rng.integers(0, len(keys), size=20000)]
+    probe += [b"absent-%09d" % i for i in range(1000)]
+    t0 = time.perf_counter()
+    bad = 0
+    for key in probe:
+        if await tree.get(key) != oracle.get(key):
+            bad += 1
+    log(f"mesh_wide: {len(probe)} oracle gets {time.perf_counter() - t0:.1f}s,"
+        f" mismatches {bad}")
+    tree.close()
+    if bad:
+        raise AssertionError(f"mesh_wide: {bad} gets disagree with the oracle")
+
+    # Run mesh_k7: K7 on the same columns, then the mesh and numpy.
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    perm7, same7 = merge.device_sort_dedup(cols, mesh.devices[0])
+    t_k7 = time.perf_counter() - t0
+    k7_counts = dict(_cuda.launches)
+    # The mesh's sort of the same columns, traced (after the counts).
+    import torch
+
+    with _device_trace(torch, mesh.devices[0]) as prof:
+        t0 = time.perf_counter()
+        perm_d, same_d = dist_merge.distributed_sort_dedup(cols, mesh)
+        t_sort = time.perf_counter() - t0
+    if prof is not None:
+        busy_ms, top = _device_busy(prof)
+        log(f"profile: mesh sort of the wide columns wall "
+            f"{t_sort * 1e3:.1f}ms (traced), device busy {busy_ms:.2f}ms = "
+            f"{busy_ms / (t_sort * 1e3):.4f} of wall; top: {top}")
+    perm_np = columnar.sort_columns_numpy(cols)
+    keep_np = columnar.dedup_mask(cols, perm_np)
+    ok = (np.array_equal(perm7, perm_d) and np.array_equal(same7, same_d)
+          and np.array_equal(perm7, perm_np) and np.array_equal(~same7, keep_np))
+    log(f"mesh_k7: device_sort_dedup of {len(cols)} rows {t_k7:.3f}s end to "
+        f"end; (perm, same) equal to the mesh and to numpy: {ok}; launches "
+        f"{k7_counts}")
+    if not ok:
+        raise AssertionError("mesh_k7: K7 disagrees with the mesh or numpy")
+    shutil.rmtree(os.path.join(WORK, "mesh"))
+    return {"mesh_wide": counts, "mesh_k7": k7_counts}
+
+
+def _mesh_sort(np, mesh, name, runs):
+    """One counted distributed_sort_dedup over in-memory runs; returns
+    its columns, (perm, same), launch counts and dist_stats delta."""
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.parallel import dist_merge
+    from dbeel_tpu_torch.storage import columnar
+
+    cols = columnar.load_columns(runs)
+    before = dict(dist_merge.dist_stats)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    perm, same = dist_merge.distributed_sort_dedup(cols, mesh)
+    secs = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    delta = _dist_delta(before)
+    log(f"{name}: {len(cols)} rows sorted in {secs:.3f}s; dist_stats "
+        f"{delta}; launches {counts}")
+    return cols, perm, same, counts, delta
+
+
+def mesh_hot(np, mesh, n_per_run=HOT_KEYS):
+    from dbeel_tpu_torch.storage import columnar
+
+    cols, perm, _same, counts, delta = _mesh_sort(
+        np, mesh, "mesh_hot", hot_runs(np, n_per_run)
+    )
+    if delta != {"runs": 1, "fallbacks": 0, "overflow_rows": 0}:
+        raise AssertionError(f"mesh_hot overflowed: {delta}")
+    perm = columnar.fixup_long_key_ties(cols, perm)
+    perm_np = columnar.fixup_long_key_ties(
+        cols, columnar.sort_columns_numpy(cols)
+    )
+    if not (np.array_equal(perm, perm_np) and np.array_equal(
+            columnar.dedup_mask(cols, perm), columnar.dedup_mask(cols, perm_np))):
+        raise AssertionError("mesh_hot: differs from numpy after the fix-up")
+    return counts
+
+
+def mesh_skew(np, mesh, n_per_run=SKEW_KEYS):
+    from dbeel_tpu_torch.ops import bitonic
+    from dbeel_tpu_torch.storage import columnar
+
+    seen = []
+    real = bitonic.merge_runs_perm_kernel
+
+    def spy(stacks):
+        seen.append(stacks.device)
+        return real(stacks)
+
+    bitonic.merge_runs_perm_kernel = spy
+    try:
+        cols, perm, same, counts, delta = _mesh_sort(
+            np, mesh, "mesh_skew", skew_runs(np, n_per_run)
+        )
+    finally:
+        bitonic.merge_runs_perm_kernel = real
+    if delta["fallbacks"] != 1 or delta["overflow_rows"] <= 0 or delta["runs"]:
+        raise AssertionError(f"mesh_skew did not fall back once: {delta}")
+    if seen != [mesh.devices[0]]:
+        raise AssertionError(f"mesh_skew: K4 ran on {seen}, want "
+                             f"[{mesh.devices[0]}]")
+    perm_np = columnar.sort_columns_numpy(cols)
+    if not (np.array_equal(perm, perm_np)
+            and np.array_equal(~same, columnar.dedup_mask(cols, perm_np))):
+        raise AssertionError("mesh_skew: differs from numpy")
+    return counts
+
+
+def mesh_big(torch, np, mesh, bench, bench_keys=BENCH_KEYS):
+    """Phase 3's runs through the mesh pipeline.  ``bench`` — phase 3's
+    runs, digest and rate; None (``--only mesh``) builds ``bench_keys``
+    docs of runs and takes the device strategy's merge on the first
+    partition's device as the reference."""
+    from dbeel_tpu_torch.ops import bitonic, pipeline
+    from dbeel_tpu_torch.parallel import dist_merge
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+
+    if bench is None:
+        d = os.path.join(WORK, "bench")
+        os.makedirs(d)
+        idx = build_bench_runs(np, d, bench_keys, 8)
+        rate, n, sha, _ = _merge(
+            get_strategy("device", device=mesh.devices[0]), d, idx, 101
+        )
+        bench = dict(dir=d, idx=idx, sha=sha, n=n, rate=rate)
+    slots = []
+    real1 = bitonic.merge_runs_prefix32_packed_batch_kernel
+    real2 = bitonic.merge_runs_prefix64_packed_batch_kernel
+
+    def spy(real):
+        def launch(operand, counts, pack_bits):
+            slots.append((operand.shape[0], operand.device))
+            return real(operand, counts, pack_bits)
+        return launch
+
+    strategy = dist_merge.DistributedMergeStrategy(mesh)
+    runs_before = pipeline.pipeline_stats["runs"]
+    bitonic.merge_runs_prefix32_packed_batch_kernel = spy(real1)
+    bitonic.merge_runs_prefix64_packed_batch_kernel = spy(real2)
+    try:
+        (rate, n, sha, secs), counts = _main_path_run(
+            lambda: _merge(strategy, bench["dir"], bench["idx"], 107)
+        )
+    finally:
+        bitonic.merge_runs_prefix32_packed_batch_kernel = real1
+        bitonic.merge_runs_prefix64_packed_batch_kernel = real2
+    shutil.rmtree(bench["dir"])
+    log(f"mesh_big: {n} entries through the mesh pipeline in {secs:.2f}s "
+        f"({rate:.0f} keys/s; one card's pipeline {bench['rate']:.0f} keys/s "
+        f"in this run), sha256 equal: {sha == bench['sha']}; launch slots "
+        f"(J, device) {sorted(set((j, str(dv)) for j, dv in slots))} x "
+        f"{len(slots)}; launches {counts}")
+    if pipeline.pipeline_stats["runs"] == runs_before:
+        raise AssertionError("mesh_big did not run the pipeline")
+    if (n, sha) != (bench["n"], bench["sha"]):
+        raise AssertionError("mesh_big output differs from the host merge")
+    if not slots or {j for j, _ in slots} != {1} or (
+            {dv for _, dv in slots} != set(mesh.devices)):
+        raise AssertionError(f"mesh_big: launches not one slot per "
+                             f"partition on its device: {slots}")
+    return counts
+
+
+def phase_mesh(torch, np, bench=None, devices=None, n_ops=WIDE_OPS,
+               hot_keys=HOT_KEYS, skew_keys=SKEW_KEYS, bench_keys=BENCH_KEYS):
+    """Returns the launch counts of the mesh phase's runs.  ``devices``
+    None = mesh_devices(torch); ``[cpu] * 4`` with small sizes (and
+    DistributedMergeStrategy.PIPELINE_MIN_BYTES lowered) rehearses it
+    on the CPU."""
+    from dbeel_tpu_torch.parallel.mesh import shard_mesh
+
+    t0 = time.perf_counter()
+    mesh = shard_mesh(devices=devices or mesh_devices(torch))
+    log(f"mesh: {mesh.size} partitions on {len(set(mesh.devices))} "
+        f"device(s), placement {[str(dv) for dv in mesh.devices]}")
+    runs = asyncio.run(_drive_mesh_wide(np, mesh, n_ops))
+    runs["mesh_hot"] = mesh_hot(np, mesh, hot_keys)
+    runs["mesh_skew"] = mesh_skew(np, mesh, skew_keys)
+    runs["mesh_big"] = mesh_big(torch, np, mesh, bench, bench_keys)
+    log(f"mesh: {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_mesh_launches(runs):
+    """mesh_wide, mesh_hot: K5 x8, K9a x4, K9b x4 and nothing else;
+    mesh_k7: K7 x1; mesh_skew: the same plus K4 x1; mesh_big: K1/K2
+    only, a multiple of the partition count."""
+    sort = {"K5": 2 * MESH_PARTS, "K9a": MESH_PARTS, "K9b": MESH_PARTS}
+    for name, extra in (("mesh_wide", {}), ("mesh_hot", {}),
+                        ("mesh_skew", {"K4": 1}), ("mesh_k7", None)):
+        got = runs[name]
+        want = {k: 0 for k in got}
+        want.update({"K7": 1} if extra is None else dict(sort, **extra))
+        if got != want:
+            raise AssertionError(f"{name} launches {got} (want {want})")
+    big = runs["mesh_big"]
+    rest = {k: v for k, v in big.items() if k not in ("K1", "K2")}
+    merges = big["K1"] + big["K2"]
+    if big["K1"] == 0 or any(rest.values()) or merges % MESH_PARTS:
+        raise AssertionError(f"mesh_big launches {big}")
+
+
+# ----------------------------------------------------------------------
+
+
+PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", default=",".join(PHASES),
+        help="comma-separated phases to run after phase 1 "
+             f"(default: all of {','.join(PHASES)})",
+    )
+    args = parser.parse_args(argv)
+    only = [p for p in args.only.split(",") if p]
+    if not set(only) <= set(PHASES):
+        parser.error(f"unknown phase in {args.only!r}")
     try:
         import numpy as np
         import torch
@@ -1380,29 +1896,50 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     t_start = time.perf_counter()
+    kernels, runs = [], {}
     try:
         card = phase_facts(torch)
-        kernels = phase_kernels(torch, np)
+        if "kernels" in only:
+            kernels = phase_kernels(torch, np)
         from dbeel_tpu_torch.storage.compaction import get_strategy
 
+        # auto: the one-card device strategy, or the mesh over every
+        # card; phases 3-6 hold their routes on the device strategy.
         auto = get_strategy("auto")
-        if auto.name != "device" or auto.device.type != "cuda":
+        want = "distributed" if torch.cuda.device_count() > 1 else "device"
+        if auto.name != want or auto.device.type != "cuda":
             raise AssertionError(
-                f"auto resolved to {auto.name} on {auto.device}"
+                f"auto resolved to {auto.name} on {auto.device}, want {want}"
             )
-        runs = phase_compaction(torch, np, card, BENCH_KEYS, auto)
-        runs.update(phase_lsm(np, LSM_OPS, auto))
-        shard_runs = phase_shards(torch, np)
-        check_shard_launches(shard_runs)
-        runs.update(shard_runs)
-        scan_runs = phase_scan(torch, np)
-        check_scan_launches(scan_runs)
-        runs.update(scan_runs)
-        from dbeel_tpu_torch.ops import query_kernels
+        strategy = get_strategy("device")
+        bench = None
+        if "compaction" in only:
+            phase_runs, bench = phase_compaction(
+                torch, np, card, BENCH_KEYS, strategy
+            )
+            runs.update(phase_runs)
+        if "lsm" in only:
+            runs.update(phase_lsm(np, LSM_OPS, strategy))
+        if "shards" in only:
+            shard_runs = phase_shards(torch, np)
+            check_shard_launches(shard_runs)
+            runs.update(shard_runs)
+        if "scan" in only:
+            scan_runs = phase_scan(torch, np, strategy=strategy)
+            check_scan_launches(scan_runs)
+            runs.update(scan_runs)
+            from dbeel_tpu_torch.ops import query_kernels
 
-        with open(query_kernels.last_good_path()) as f:
-            log(f"DEVICE_LAST_GOOD ({query_kernels.last_good_path()}): "
-                f"{json.dumps(json.load(f), sort_keys=True)}")
+            with open(query_kernels.last_good_path()) as f:
+                log(f"DEVICE_LAST_GOOD ({query_kernels.last_good_path()}): "
+                    f"{json.dumps(json.load(f), sort_keys=True)}")
+        if "mesh" in only:
+            mesh_runs = phase_mesh(torch, np, bench)
+            check_mesh_launches(mesh_runs)
+            runs.update(mesh_runs)
+        elif bench is not None:
+            shutil.rmtree(bench["dir"])
+        log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             by_run = {run: c[row["name"]] for run, c in runs.items()}
             row["launches"] = sum(by_run.values())

@@ -7,9 +7,10 @@ sorted-data compute.  This package holds that storage engine —
 write → WAL → memtable → flush → SSTable → compaction → read → filtered
 scan — with the compaction merge, the hash memtable's flush sort and
 the coalesced merges on the card through hand-written CUDA bitonic
-kernels (``csrc/bitonic.cu``), and the filtered scan's numeric leaves
-through CUDA filter kernels (``csrc/query.cu``), both built and bound
-in ``ops/_cuda.py``.
+kernels (``csrc/bitonic.cu``), the distributed merge as a sample sort
+over a mesh of partitions (``parallel/``, ``csrc/dist.cu``), and the
+filtered scan's numeric leaves through CUDA filter kernels
+(``csrc/query.cu``), all built and bound in ``ops/_cuda.py``.
 
 It imports ``torch`` and ``numpy`` and nothing of ``dbeel_tpu``; the
 on-disk formats are byte-identical, so a directory written by one
@@ -23,8 +24,9 @@ Layer map:
               sstable,wal,native}
   merge seam  dbeel_tpu_torch.storage.compaction.get_strategy
   device ops  dbeel_tpu_torch.ops.{device_compaction,pipeline,bitonic,
-              sort,query_kernels}
-  kernels     dbeel_tpu_torch/csrc/{bitonic,query}.cu (ops/_cuda.py
+              merge,sort,query_kernels}
+  mesh        dbeel_tpu_torch.parallel.{mesh,dist_merge}
+  kernels     dbeel_tpu_torch/csrc/{bitonic,query,dist}.cu (ops/_cuda.py
               builds them)
   codec       dbeel_tpu_torch.utils.msgpack_codec (no msgpack package)
 

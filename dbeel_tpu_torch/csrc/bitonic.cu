@@ -1,5 +1,5 @@
 // Bitonic merge network over K sorted runs — the compaction merge and
-// flush sort kernels of dbeel_tpu_torch (K1-K6 of PERF.md), for Hopper
+// flush sort kernels of dbeel_tpu_torch (K1-K7 of PERF.md), for Hopper
 // (sm_90a).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py:
@@ -9,6 +9,7 @@
 //   K4 merge_runs_perm_kernel                    (bitonic.py:104, :81)
 //   K5 merge_runs_kernel / sort_stack_kernel     (bitonic.py:95, :114)
 //   K6 merge_runs_prefix_batch_kernel            (bitonic.py:284)
+//   K7 _sort_kernel + _same_key_mask    (dbeel_tpu/ops/merge.py:35, :42)
 //
 // Data: a flat array of N = J*K*P rows of W u32 words (W = 2, 3, 9),
 // compared lexicographically on the first NCMP words (2, 3, 8).  The
@@ -25,7 +26,10 @@
 // pow2-sized and the levels stop at K*P rows, so no level's pair ever
 // crosses a batch boundary.  K5's flush sort is the P = 1 case (every
 // row its own run): a one-row run reverses to itself, so its first
-// level's flip is a plain stage.
+// level's flip is a plain stage.  K7 is the same P = 1 network on nine
+// separate operand columns: lax.sort of 9 u32 operands on 8 keys, with
+// a staging pass from columns to rows before it and a column epilogue
+// (plus _same_key_mask's flags) after it.
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
@@ -269,6 +273,35 @@ __global__ void rows_same_kernel(const uint32_t* rows, uint64_t n,
   same[i] = s;
 }
 
+// K7 staging: nine separate operand columns (column c at cols + c*n)
+// into rows of nine words.
+__global__ void cols_to_rows_kernel(const uint32_t* cols, uint64_t n,
+                                    uint32_t* rows) {
+  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+#pragma unroll
+  for (int c = 0; c < 9; ++c) rows[i * 9 + c] = cols[c * n + i];
+}
+
+// K7 epilogue: the sorted rows back as nine columns, and
+// _same_key_mask (merge.py:42) — same[i] = words 0-4 of row i equal
+// those of row i-1, with no sentinel check (unlike K4/K5's epilogues).
+__global__ void rows_to_cols_same_kernel(const uint32_t* rows, uint64_t n,
+                                         uint32_t* cols, uint8_t* same) {
+  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+#pragma unroll
+  for (int c = 0; c < 9; ++c) cols[c * n + i] = rows[i * 9 + c];
+  uint8_t s = 0;
+  if (i > 0) {
+    bool eq = true;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) eq = eq && rows[i * 9 + c] == rows[(i - 1) * 9 + c];
+    s = eq;
+  }
+  same[i] = s;
+}
+
 inline unsigned blocks_for(uint64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -411,6 +444,23 @@ int dbeel_bitonic_merge_rows(const uint32_t* stacks, uint32_t k, uint32_t p,
   cudaError_t err = run_network<9, 8>(work, n, k, p, st);
   if (err != cudaSuccess) return (int)err;
   rows_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, out, same);
+  return (int)cudaGetLastError();
+}
+
+// K7: cols (9, N) u32 — nine operand columns, N a power of two >= 8 —
+// -> out (9, N) u32, the columns sorted lexicographically on the first
+// eight, + same (N,) bytes 0/1 over columns 0-4; work holds N*9 u32.
+// Bound: bytes (the columns read once, the sorted columns and the flags
+// written once).  Counted as "K7" by ops/merge.py sort_dedup_kernel.
+int dbeel_bitonic_sort_dedup_cols(const uint32_t* cols, uint32_t n,
+                                  uint32_t* work, uint32_t* out,
+                                  uint8_t* same, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cols_to_rows_kernel<<<blocks_for(n), kThreads, 0, st>>>(cols, n, work);
+  cudaError_t err = run_network<9, 8>(work, n, n, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  rows_to_cols_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, out,
+                                                               same);
   return (int)cudaGetLastError();
 }
 

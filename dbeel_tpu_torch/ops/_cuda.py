@@ -2,8 +2,9 @@
 
 Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
 a shared library with a plain C interface, loaded with ctypes — one
-library per source (``bitonic.cu``: the merge networks K1-K6;
-``query.cu``: the filter kernels K8), so the builds run side by side
+library per source (``bitonic.cu``: the merge networks K1-K7;
+``query.cu``: the filter kernels K8; ``dist.cu``: the sample sort's
+splitters and bucket scatter K9a/K9b), so the builds run side by side
 and a change to one source rebuilds only its library.  A build runs at
 first use — never at import, so the CPU tests import this module on
 machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed in
@@ -28,7 +29,7 @@ from typing import Callable, Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("bitonic", "query")
+    for name in ("bitonic", "query", "dist")
 }
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = [
@@ -51,7 +52,8 @@ _lock = threading.Lock()
 launches: Dict[str, int] = {
     name: 0
     for name in (
-        "K1", "K2", "K3", "K4", "K5", "K6", "K8a", "K8b", "K8c", "K8d",
+        "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K8c",
+        "K8d", "K9a", "K9b",
     )
 }
 _launches_lock = threading.Lock()
@@ -154,6 +156,7 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
     handle.dbeel_bitonic_prefix_top_batch.argtypes = [
         vp, vp, u32, u32, u32, u32, vp, vp, vp,
     ]
+    handle.dbeel_bitonic_sort_dedup_cols.argtypes = [vp, u32, vp, vp, vp, vp]
     for fn in (
         handle.dbeel_bitonic_prefix32_packed,
         handle.dbeel_bitonic_prefix64_packed,
@@ -161,6 +164,7 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
         handle.dbeel_bitonic_perm,
         handle.dbeel_bitonic_merge_rows,
         handle.dbeel_bitonic_prefix_top_batch,
+        handle.dbeel_bitonic_sort_dedup_cols,
     ):
         fn.restype = ctypes.c_int
 
@@ -186,9 +190,24 @@ def _bind_query(handle: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
+def _bind_dist(handle: ctypes.CDLL) -> None:
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    handle.dbeel_dist_splitters.argtypes = [vp, u32, u32, vp, vp]
+    handle.dbeel_dist_bucket_scatter.argtypes = [
+        vp, u32, vp, u32, u32, vp, vp, vp,
+    ]
+    for fn in (handle.dbeel_dist_splitters, handle.dbeel_dist_bucket_scatter):
+        fn.restype = ctypes.c_int
+
+
 def lib() -> ctypes.CDLL:
     """The merge networks' library (``csrc/bitonic.cu``)."""
     return _load("bitonic", _bind_bitonic)
+
+
+def dist_lib() -> ctypes.CDLL:
+    """The sample sort's library (``csrc/dist.cu``)."""
+    return _load("dist", _bind_dist)
 
 
 def query_lib() -> ctypes.CDLL:

@@ -270,10 +270,11 @@ def merge_runs_prefix32_packed_batch_kernel(
         device=vals.device,
     )
     work = torch.empty(j * k * p * 2, dtype=torch.int32, device=vals.device)
-    rc = _cuda.lib().dbeel_bitonic_prefix32_packed(
-        vals.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
-        work.data_ptr(), out.data_ptr(), _stream(vals),
-    )
+    with torch.cuda.device(vals.device):
+        rc = _cuda.lib().dbeel_bitonic_prefix32_packed(
+            vals.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
+            work.data_ptr(), out.data_ptr(), _stream(vals),
+        )
     _cuda.check(rc, "merge_runs_prefix32_packed_batch_kernel")
     _cuda.count("K1")
     return out
@@ -303,10 +304,11 @@ def merge_runs_prefix64_packed_batch_kernel(
     work = torch.empty(
         j * k * p * 3, dtype=torch.int32, device=prefixes.device
     )
-    rc = _cuda.lib().dbeel_bitonic_prefix64_packed(
-        prefixes.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
-        work.data_ptr(), out.data_ptr(), _stream(prefixes),
-    )
+    with torch.cuda.device(prefixes.device):
+        rc = _cuda.lib().dbeel_bitonic_prefix64_packed(
+            prefixes.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
+            work.data_ptr(), out.data_ptr(), _stream(prefixes),
+        )
     _cuda.check(rc, "merge_runs_prefix64_packed_batch_kernel")
     _cuda.count("K2")
     return out
@@ -334,10 +336,11 @@ def merge_runs_prefix_kernel(
         return prefix_top_plain(prefixes, counts, out_rows)
     out = torch.empty(out_rows, dtype=torch.int32, device=prefixes.device)
     work = torch.empty(k * p * 3, dtype=torch.int32, device=prefixes.device)
-    rc = _cuda.lib().dbeel_bitonic_prefix_top(
-        prefixes.data_ptr(), counts.data_ptr(), k, p, out_rows,
-        work.data_ptr(), out.data_ptr(), _stream(prefixes),
-    )
+    with torch.cuda.device(prefixes.device):
+        rc = _cuda.lib().dbeel_bitonic_prefix_top(
+            prefixes.data_ptr(), counts.data_ptr(), k, p, out_rows,
+            work.data_ptr(), out.data_ptr(), _stream(prefixes),
+        )
     _cuda.check(rc, "merge_runs_prefix_kernel")
     _cuda.count("K3")
     return out
@@ -362,10 +365,11 @@ def merge_runs_perm_kernel(
     work = torch.empty(
         k * p * NUM_COLS, dtype=torch.int32, device=stacks.device
     )
-    rc = _cuda.lib().dbeel_bitonic_perm(
-        stacks.data_ptr(), k, p, work.data_ptr(), idx.data_ptr(),
-        same.data_ptr(), _stream(stacks),
-    )
+    with torch.cuda.device(stacks.device):
+        rc = _cuda.lib().dbeel_bitonic_perm(
+            stacks.data_ptr(), k, p, work.data_ptr(), idx.data_ptr(),
+            same.data_ptr(), _stream(stacks),
+        )
     _cuda.check(rc, "merge_runs_perm_kernel")
     _cuda.count("K4")
     return idx, same
@@ -392,10 +396,11 @@ def merge_runs_kernel(
     work = torch.empty(
         k * p * NUM_COLS, dtype=torch.int32, device=stacks.device
     )
-    rc = _cuda.lib().dbeel_bitonic_merge_rows(
-        stacks.data_ptr(), k, p, work.data_ptr(), out.data_ptr(),
-        same.data_ptr(), _stream(stacks),
-    )
+    with torch.cuda.device(stacks.device):
+        rc = _cuda.lib().dbeel_bitonic_merge_rows(
+            stacks.data_ptr(), k, p, work.data_ptr(), out.data_ptr(),
+            same.data_ptr(), _stream(stacks),
+        )
     _cuda.check(rc, "merge_runs_kernel")
     _cuda.count("K5")
     return out, same
@@ -435,10 +440,11 @@ def merge_runs_prefix_batch_kernel(
     work = torch.empty(
         j * k * p * 3, dtype=torch.int32, device=prefixes.device
     )
-    rc = _cuda.lib().dbeel_bitonic_prefix_top_batch(
-        prefixes.data_ptr(), counts.data_ptr(), j, k, p, out_rows,
-        work.data_ptr(), out.data_ptr(), _stream(prefixes),
-    )
+    with torch.cuda.device(prefixes.device):
+        rc = _cuda.lib().dbeel_bitonic_prefix_top_batch(
+            prefixes.data_ptr(), counts.data_ptr(), j, k, p, out_rows,
+            work.data_ptr(), out.data_ptr(), _stream(prefixes),
+        )
     _cuda.check(rc, "merge_runs_prefix_batch_kernel")
     _cuda.count("K6")
     return out

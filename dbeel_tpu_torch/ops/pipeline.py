@@ -38,6 +38,13 @@ tests enforce it).
 
 On ``device="cpu"`` the same threads run the kernels' plain PyTorch
 versions synchronously (the CPU tests).
+
+With a ``mesh`` of several partitions (``parallel.mesh``) the launch
+batch widens to a multiple of the partition count and its J axis is
+split over the partitions: slot slice s is uploaded to, and merged on,
+``mesh.devices[s]``.  Keyspace partitions are disjoint sorted ranges,
+so this is pure data parallelism with no exchange between devices;
+the output bytes are those of the pipeline without a mesh.
 """
 
 from __future__ import annotations
@@ -332,12 +339,17 @@ def pipeline_merge(
     device="cuda",
     throttle=None,
     tombstone_drop_before: "int | None" = None,
+    mesh=None,
 ) -> Optional[MergeResult]:
     """Run the partitioned pipeline on ``device``.  Returns None only
     on the algorithmic decline (an equal-prefix group larger than the
     kernel rows, counted in ``pipeline_stats``) — the caller then takes
     the single-shot path.  A native library that cannot be built
-    raises on a card; on ``cpu`` it declines too."""
+    raises on a card; on ``cpu`` it declines too.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` — with more than one partition
+    the launch batch's J axis is split over its devices (each merges
+    its own keyspace partitions, no exchange between them)."""
     result = _pipeline_merge_impl(
         sources,
         dir_path,
@@ -347,6 +359,7 @@ def pipeline_merge(
         torch.device(device),
         throttle,
         tombstone_drop_before,
+        mesh=mesh,
     )
     pipeline_stats["runs" if result is not None else "declined"] += 1
     return result
@@ -483,6 +496,7 @@ def _pipeline_merge_impl(
     device: torch.device,
     throttle=None,
     tombstone_drop_before: "int | None" = None,
+    mesh=None,
 ) -> Optional[MergeResult]:
     from ..storage import native as native_mod
     from .bitonic import (
@@ -535,7 +549,17 @@ def _pipeline_merge_impl(
             r = f.result()
             _stage_prefixes(r, lib)
             runs.append(r)
+    # Mesh mode: widen the launch batch to a partition multiple and
+    # split the batch axis — each partition's device merges its own
+    # keyspace partitions.  Computed BEFORE partitioning: the
+    # multi-batch preference must target the EFFECTIVE launch width.
     launch_j = _LAUNCH_BATCH
+    devs = [device]
+    if mesh is not None and mesh.size > 1:
+        devs = list(mesh.devices)
+        if {d.type for d in devs} != {device.type}:
+            raise ValueError(f"mesh {devs} does not run on {device.type}")
+        launch_j = len(devs) * max(1, _LAUNCH_BATCH // len(devs))
 
     chosen = _choose_partitions(runs, launch_j)
     if chosen is None:
@@ -608,11 +632,14 @@ def _pipeline_merge_impl(
     kernel_q: "queue.Queue" = queue.Queue()
     order_q: "queue.Queue" = queue.Queue()
     stop = threading.Event()
-    # Side streams: uploads + kernels on one, downloads on the other,
-    # so batch b+1's host→device copy and kernel overlap batch b's
-    # device→host copy.
-    up_stream = torch.cuda.Stream(device) if on_card else None
-    down_stream = torch.cuda.Stream(device) if on_card else None
+    # Side streams on each device: uploads + kernels on one, downloads
+    # on the other, so batch b+1's host→device copy and kernel overlap
+    # batch b's device→host copy.
+    up_streams = {d: torch.cuda.Stream(d) for d in devs} if on_card else {}
+    down_streams = (
+        {d: torch.cuda.Stream(d) for d in devs} if on_card else {}
+    )
+    slot_span = launch_j // len(devs)  # slots per device in a batch
 
     def _staging(shape):
         """Host staging buffer (u32 view + its tensor): pinned on a
@@ -621,11 +648,12 @@ def _pipeline_merge_impl(
         return t.numpy().view(np.uint32), t
 
     def _launch_batch(metas, hosts, mode32):
-        """One launch over up to ``launch_j`` same-mode partitions,
-        empty-slot padded to a single shape.  On a card: pinned host
-        buffers → device copies and the kernel on ``up_stream``, with an
+        """One launch per device over up to ``launch_j`` same-mode
+        partitions, empty-slot padded to a single shape, each device
+        taking its ``slot_span`` slots.  On a card: pinned host buffers →
+        device copies and the kernel on the device's up stream, with an
         event recorded after the launch; the queue item keeps every
-        buffer alive until the download has waited on that event."""
+        buffer alive until the download has waited on those events."""
         j = launch_j
         stack, stack_t = _staging(
             (j, k2, p2) if mode32 else (j, k2, p2, 2)
@@ -642,34 +670,51 @@ def _pipeline_merge_impl(
             if mode32
             else merge_runs_prefix64_packed_batch_kernel
         )
-        if on_card:
-            with torch.cuda.stream(up_stream):
-                dev = stack_t.to(device, non_blocking=True)
-                cnt = counts_t.to(device, non_blocking=True)
-                out = kernel(dev, cnt, pack_bits)
-                done = torch.cuda.Event()
-                done.record(up_stream)
-            keep = (stack_t, counts_t, dev, cnt)
-        else:
-            out = kernel(stack_t, counts_t, pack_bits)
-            done, keep = None, None
+        launched = []  # (device, out, done event) in slot order
+        keep = [stack_t, counts_t]
+        for s, dev in enumerate(devs):
+            slots = slice(s * slot_span, (s + 1) * slot_span)
+            if on_card:
+                stream = up_streams[dev]
+                with torch.cuda.stream(stream):
+                    dev_stack = stack_t[slots].to(dev, non_blocking=True)
+                    dev_cnt = counts_t[slots].to(dev, non_blocking=True)
+                    out = kernel(dev_stack, dev_cnt, pack_bits)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                keep += [dev_stack, dev_cnt]
+            else:
+                out = kernel(stack_t[slots], counts_t[slots], pack_bits)
+                done = None
+            launched.append((dev, out, done))
         _ev(f"dispatched batch parts={[m[0] for m in metas]}")
-        kernel_q.put((metas, out, done, keep))
+        kernel_q.put((metas, launched, keep))
 
-    def _fetch(out, done) -> np.ndarray:
-        """Packed run ids to the host: wait on the launch's event, then
-        a device→host copy into pinned memory on ``down_stream``."""
+    def _fetch(launched) -> np.ndarray:
+        """Packed run ids to the host in slot order: per launch, wait
+        on its event, then a device→host copy into pinned memory on the
+        device's down stream."""
         if not on_card:
-            return out.numpy().view(np.uint32)
-        done.synchronize()
-        host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-        with torch.cuda.stream(down_stream):
-            out.record_stream(down_stream)
-            host.copy_(out, non_blocking=True)
-            fetched = torch.cuda.Event()
-            fetched.record(down_stream)
-        fetched.synchronize()
-        return host.numpy().view(np.uint32)
+            words = [out.numpy().view(np.uint32) for _, out, _ in launched]
+        else:
+            fetches = []
+            for dev, out, done in launched:
+                done.synchronize()
+                host = torch.empty(
+                    out.shape, dtype=torch.int32, pin_memory=True
+                )
+                stream = down_streams[dev]
+                with torch.cuda.stream(stream):
+                    out.record_stream(stream)
+                    host.copy_(out, non_blocking=True)
+                    fetched = torch.cuda.Event()
+                    fetched.record(stream)
+                fetches.append((host, fetched))
+            words = []
+            for host, fetched in fetches:
+                fetched.synchronize()
+                words.append(host.numpy().view(np.uint32))
+        return words[0] if len(words) == 1 else np.concatenate(words)
 
     def upload():
         try:
@@ -700,9 +745,7 @@ def _pipeline_merge_impl(
                     # pending first, THEN the empty marker (the
                     # downloader releases this partition's permit).
                     flush()
-                    kernel_q.put(
-                        ([(p, counts, los, True, 0, 0)], None, None, None)
-                    )
+                    kernel_q.put(([(p, counts, los, True, 0, 0)], None, None))
                     continue
                 if metas and mode32 != batch_mode:
                     flush()
@@ -735,12 +778,12 @@ def _pipeline_merge_impl(
                     stop.set()
                     order_q.put(item)
                     return
-                metas, out, done, _keep = item
-                if out is not None:
+                metas, launched, _keep = item
+                if launched is not None:
                     _ev(f"d2h start parts={[m[0] for m in metas]}")
-                    words = _fetch(out, done)  # bit-packed run ids
+                    words = _fetch(launched)  # bit-packed run ids
                     _ev(f"d2h done parts={[m[0] for m in metas]}")
-                    del item, out, _keep
+                    del item, launched, _keep
                     for slot, meta in enumerate(metas):
                         in_flight.release()
                         order_q.put((meta, words[slot]))

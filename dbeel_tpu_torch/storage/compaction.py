@@ -12,6 +12,8 @@ merge is a strategy (SURVEY.md §7 stage 3):
   * DeviceMergeStrategy  — (dbeel_tpu_torch.ops.device_compaction) same
                            pipeline with the merge on the card (CUDA
                            bitonic kernels, ops/bitonic.py).
+  * DistributedMergeStrategy — (dbeel_tpu_torch.parallel.dist_merge) the
+                           merge as a sample sort over a mesh of cards.
 
 All strategies must produce byte-identical SSTable files — golden tests
 enforce it.  A strategy writes the ``compact_*`` triplet; the LSM tree
@@ -447,24 +449,37 @@ def _no_index_runs(index_fields) -> None:
 # (ROADMAP.md, "Port: still to port").
 _NOT_PORTED = {
     "native": "the C++ k-way merge strategy (NativeMergeStrategy)",
-    "distributed": "K9 on 4 GPUs",
 }
+
+
+def _several_cards(dev) -> bool:
+    """More than one card is visible and the caller named none."""
+    import torch
+
+    return (
+        dev.type == "cuda" and dev.index is None
+        and torch.cuda.device_count() > 1
+    )
 
 
 def get_strategy(name: str, device=None) -> CompactionStrategy:
     """Resolve a strategy by config name (config.compaction_backend).
 
-    ``device``, ``device_full``, ``auto`` and ``coalesced`` merge on the
-    card — ``device`` (default ``"cuda"``) names it; ``"cpu"`` selects
-    the kernels' plain PyTorch versions.  ``coalesced`` shares the
-    device's process-wide coalescer (server/coalescer.py).  With no
-    card and no ``"cpu"`` they raise: there is no silent fallback to a
-    host merge."""
+    ``device``, ``device_full``, ``auto``, ``coalesced`` and
+    ``distributed`` merge on the card — ``device`` (default ``"cuda"``)
+    names it; ``"cpu"`` selects the kernels' plain PyTorch versions.
+    ``coalesced`` shares the device's process-wide coalescer
+    (server/coalescer.py).  ``distributed`` is the sample sort over a
+    mesh of every visible card when there is more than one, else
+    ``device``; ``auto`` resolves to ``distributed`` on several cards
+    and to ``device`` on one (dbeel_tpu/storage/compaction.py:543-584).
+    With no card and no ``"cpu"`` they raise: there is no silent
+    fallback to a host merge."""
     if name == "heap":
         return HeapMergeStrategy()
     if name == "cpu" or name == "columnar":
         return ColumnarMergeStrategy()
-    if name in ("device", "device_full", "auto"):
+    if name in ("device", "device_full", "auto", "distributed"):
         from ..ops._cuda import resolve_device
         from ..ops.device_compaction import (
             DeviceFullMergeStrategy,
@@ -472,6 +487,11 @@ def get_strategy(name: str, device=None) -> CompactionStrategy:
         )
 
         dev = resolve_device(device)
+        if name in ("auto", "distributed") and _several_cards(dev):
+            from ..parallel.dist_merge import DistributedMergeStrategy
+            from ..parallel.mesh import shard_mesh
+
+            return DistributedMergeStrategy(shard_mesh())
         if name == "device_full":
             return DeviceFullMergeStrategy(dev)
         return DeviceMergeStrategy(dev)

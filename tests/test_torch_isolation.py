@@ -26,7 +26,10 @@ for name in ("dbeel_tpu_torch.server.coalescer",
              "dbeel_tpu_torch.storage.query_vec",
              "dbeel_tpu_torch.storage.range_digest",
              "dbeel_tpu_torch.ops.query_kernels",
-             "dbeel_tpu_torch.utils.msgpack_codec"):
+             "dbeel_tpu_torch.utils.msgpack_codec",
+             "dbeel_tpu_torch.parallel.mesh",
+             "dbeel_tpu_torch.parallel.dist_merge",
+             "dbeel_tpu_torch.ops.merge"):
     assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules
@@ -49,13 +52,12 @@ def test_device_strategies_need_a_card_or_cpu(monkeypatch):
     from dbeel_tpu_torch.storage.compaction import get_strategy
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("device", "device_full", "auto", "coalesced"):
+    for name in ("device", "device_full", "auto", "coalesced", "distributed"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_strategy(name)
         assert get_strategy(name, device="cpu").device.type == "cpu"
-    for name in ("native", "distributed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_strategy(name)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_strategy("native")
     with pytest.raises(ValueError):
         get_strategy("nonsense")
 
