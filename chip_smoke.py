@@ -18,8 +18,12 @@ Phases (any failure exits non-zero):
   2. kernels  — K1-K9b at the shapes the main path gives
                 them, on adversarial data, each bit-equal to its plain
                 PyTorch version on the card (K8c's sum within
-                n * 2^-52 * sum|x| of math.fsum); times the kernel, the
-                plain version and one library call with CUDA events.
+                n * 2^-52 * sum|x| of math.fsum); K8a and K8c also on
+                odd lengths and misaligned views, K8c bit-identical over
+                repeated calls and on two streams at once; times the
+                kernel, the plain version and one library call with CUDA
+                events, the kernel's own device time with torch.profiler
+                and the host's time per call.
   3. compaction — bench scale: 8 runs of 1.25M docs (16 B keys, 64 B
                 values, bench.py's generator recipe, seed 7) merged with
                 get_strategy("device") through the pipeline (K1), plus a
@@ -221,6 +225,58 @@ def _time_cuda(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, calls: int = 20):
+    """The device time per call of the repository's own kernels in
+    ``fn``, with the host out of the way: torch.profiler over ``calls``
+    calls after one warm-up, the device time of every kernel of csrc/
+    (their demangled names lie in the sources' anonymous namespace;
+    PyTorch's own kernels, copies and fills are left out) summed by name
+    and divided by ``calls``.  Returns (ms, the kernels' launches per
+    call, their names); raises if the trace holds none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, launches, names = 0.0, 0, []
+    for ev in prof.key_averages():
+        key = ev.key
+        if "(anonymous namespace)::" not in key or "at::" in key:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            us += dev_us
+            launches += ev.count
+            names.append(key.split("::", 1)[1].split("(", 1)[0])
+    if not launches:
+        raise AssertionError("no kernel of csrc/ in the profiler's trace")
+    return us / calls / 1e3, launches / calls, sorted(names)
+
+
+def _host_us(torch, fn, calls: int = 100) -> float:
+    """Mean µs the host spends in one call of ``fn``: ``calls`` calls
+    back to back on the host clock after one warm-up, synchronising
+    only after the clock stops.  Keep calls x kernels per call well
+    under the card's queue of pending launches (about a thousand):
+    once it is full, each launch waits for the card and the clock reads
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
 def _sorted_runs(np, rng, j, k, p, words, hi, counts):
     """Sentinel-padded sorted runs: (j, k, p[, words]) u32, values
     below ``hi`` (small ``hi`` = heavy duplicates), 0xFFFFFFFF salted
@@ -238,6 +294,119 @@ def _sorted_runs(np, rng, j, k, p, words, hi, counts):
             else:
                 out[jj, r, :c] = v[:, 0]
     return out
+
+
+def _k8_edges(torch, np, Q, rng, odd, bit_err):
+    """K8a and K8c off the scan shape, on the card: odd lengths (the
+    vector kernels' tails), views 1-15 elements into the values and the
+    mask (the scalar path: the values off 16 B, the mask off 4 B, the
+    two offsets different), every op against the salted operands; K8c
+    within n * 2^-52 * sum|x| of math.fsum, bit-equal to the sum of the
+    view's aligned copy, +0.0 for an empty mask and n = 0, NaN
+    propagated, bit-identical over repeated calls and from two threads
+    on two streams at once."""
+    dev = torch.device("cuda")
+    lengths = (1, 3, 1023, 1025, 4097, (1 << 20) + 3)
+    offsets = [(o, (7 * o + 3) % 16) for o in range(16)]
+    base_np = rng.normal(size=lengths[-1] + 15) * 1e3
+    pick = rng.random(base_np.size) < 0.3
+    base_np[pick] = rng.choice(odd, size=int(pick.sum()))
+    base = torch.from_numpy(base_np).to(dev)
+    valid = torch.from_numpy(rng.random(base_np.size) >= 0.2).to(dev)
+    finite = valid & torch.isfinite(base)
+    checks = 0
+    for n in (0,) + lengths:
+        for ov, om in offsets:
+            v, m = base[ov:ov + n], valid[om:om + n]
+            if n:
+                for op in Q.OPS:
+                    for x in odd + [1.5, float(base_np[ov + min(7, n - 1)])]:
+                        if bit_err("K8a", Q.cmp_f64(v, m, x, op),
+                                   Q.cmp_f64_plain(v, m, x, op)):
+                            raise AssertionError(
+                                f"K8a n={n} offsets {ov},{om} {op} {x}: "
+                                "masks differ")
+                        checks += 1
+            mf = finite[om:om + n] & torch.isfinite(v)
+            got = Q.sum_f64(v, mf).item()
+            sel = base_np[ov:ov + n][mf.cpu().numpy()]
+            bound = max(n, 1) * 2.0**-52 * float(np.abs(sel).sum())
+            if not abs(got - math.fsum(sel.tolist())) <= bound:
+                raise AssertionError(f"K8c n={n} offsets {ov},{om}: "
+                                     f"{got} off math.fsum by > {bound}")
+            if Q.sum_f64(v.clone(), mf.clone()).item().hex() != got.hex():
+                raise AssertionError(f"K8c n={n} offsets {ov},{om}: the "
+                                     "aligned copy sums to other bits")
+            empty = Q.sum_f64(v, torch.zeros_like(m)).item()
+            if empty.hex() != (0.0).hex():
+                raise AssertionError(f"K8c n={n}: empty mask gave {empty}")
+            if n and not math.isnan(Q.sum_f64(v, m).item()) and bool(
+                    torch.isnan(v[m]).any()):
+                raise AssertionError(f"K8c n={n}: a NaN did not propagate")
+            checks += 1
+    # Bit-identical over repeated calls, and from two threads at once,
+    # each on a stream (and so a scratch and ticket) of its own.
+    n = SCAN_DOCS
+    v, m = base[:n], finite[:n]
+    want = Q.sum_f64(v, m).item().hex()
+    if any(Q.sum_f64(v, m).item().hex() != want for _ in range(20)):
+        raise AssertionError("K8c: repeated calls gave other bits")
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got, errors = [None, None], []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                outs = [Q.sum_f64(v, m) for _ in range(50)]
+            streams[i].synchronize()
+            got[i] = [o.item().hex() for o in outs]
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors or any(g != [want] * 50 for g in got):
+        raise AssertionError(
+            f"K8c on two streams: {errors or 'other bits'}")
+    keys = {(torch.cuda.current_device(), s.cuda_stream) for s in streams}
+    if not keys <= set(Q._sum_scratch):
+        raise AssertionError("K8c: two streams shared one scratch")
+    log(f"K8a/K8c edges: {checks} checks over lengths 0-{lengths[-1]} and "
+        f"{len(offsets)} offset pairs; K8c bit-identical over 20 calls and "
+        f"2 streams x 50 calls ({want})")
+    # What one K8a call at the scan shape spends on the host, part by
+    # part (µs per call, 2000 calls each), beside the whole call, one
+    # torch.lt and the torch.cuda.Stream object the wrappers no longer
+    # build.
+    from dbeel_tpu_torch.ops import _cuda
+
+    b = Q._bind()
+    card = torch.cuda.current_device()
+    out, stream = torch.empty_like(m), b.stream(card)
+
+    def launch():
+        b.cmp(v.data_ptr(), m.data_ptr(), n, 0.25, 2, out.data_ptr(),
+              stream)
+
+    parts = {
+        "check": lambda: Q._check(v, m),
+        "empty_like": lambda: torch.empty_like(m),
+        "current_card": b.current,
+        "raw_stream": lambda: b.stream(card),
+        "ctypes_launch": launch,
+        "count": lambda: _cuda.count("K8a"),
+        "whole_call": lambda: Q.cmp_f64(v, m, 0.25, "<"),
+        "torch_lt": lambda: torch.lt(v, 0.25),
+        "stream_object": lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    parts = {k: _host_us(torch, fn, 2000) for k, fn in parts.items()}
+    log("K8a host parts (us per call): "
+        + ", ".join(f"{k} {us:.3f}" for k, us in parts.items()))
+    return parts
 
 
 def phase_kernels(torch, np):
@@ -283,6 +452,8 @@ def phase_kernels(torch, np):
             err = check(got, want)
         bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         bound_ops = ops / PEAK_OPS_PER_S * 1e3
+        ms = _time_cuda(torch, kernel, 20)
+        device_ms, per_call, names = _device_ms(torch, kernel, 20)
         row = {
             "name": name,
             "route": "cuda",
@@ -293,7 +464,14 @@ def phase_kernels(torch, np):
             "launches": 0,
             "bit_equal": check is None,
             "max_abs_err": err,
-            "ms": _time_cuda(torch, kernel, 20),
+            "ms": ms,
+            "device_ms": device_ms,
+            # At most ~256 launches queued (K7 makes 66 per call).
+            "host_us": _host_us(
+                torch, kernel, max(5, min(100, int(256 // per_call)))
+            ),
+            "device_kernels": names,
+            "device_launches_per_call": per_call,
             "plain_ms": _time_cuda(torch, plain, 3),
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -303,7 +481,9 @@ def phase_kernels(torch, np):
         }
         log(f"{name}: {'bit_equal' if check is None else 'within bound'} "
             f"max_abs_err={err} ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.3f} bound_ms={row['bound_ms']:.5f}")
+            f"device_ms={device_ms:.5f} host_us={row['host_us']:.2f} "
+            f"plain_ms={row['plain_ms']:.3f} bound_ms={row['bound_ms']:.5f} "
+            f"library_ms={row['library_ms']} kernels={per_call:g}x{names}")
         results.append(row)
 
     def as_signed(key_u64):
@@ -580,6 +760,7 @@ def phase_kernels(torch, np):
             raise AssertionError(f"K8d {name}: min/max differ")
     if not math.isnan(Q.sum_f64(vals, valid).item()):
         raise AssertionError("K8c: a masked-in NaN did not propagate")
+    host_parts = _k8_edges(torch, np, Q, rng, odd, bit_err)
     # Library yardsticks: one PyTorch call on an operand prepared
     # outside the timed call (invalid rows as NaN for the comparison,
     # zero-filled rows for the sum, the selected rows for aminmax).
@@ -604,6 +785,7 @@ def phase_kernels(torch, np):
         lambda: torch.lt(vals_nan, 0.25),
         n * 10, n * 2, module="query_kernels",
     )
+    results[-1]["host_parts_us"] = host_parts
     record(
         "K8b", "range_f64",
         "dbeel_tpu/ops/query_kernels.py:170 (wrapper eval_range_f64 :219)",

@@ -9,18 +9,41 @@
 // What bounds them: bytes.  A filter pass reads 8 B of value and 1 B of
 // validity per row and writes 1 B of mask; a reduction reads 9 B per row.
 // At the scan stage's ~1M rows that is ~10 MB, about 3 us at 3.35 TB/s,
-// so a launch (a few us) is of the same order: the design is one pass,
-// one thread per row in a grid-stride loop with neighbouring threads on
-// neighbouring rows (coalesced 8 B and 1 B accesses), and for the
-// reductions one fixed-shape second pass instead of atomics.
+// so a launch (a few us) is of the same order, and on the host side the
+// wrapper's own cost (ops/query_kernels.py) is larger than either.
+//
+// K8a and K8c take four rows per thread: the values through two 16 B
+// (double2) loads, the validity or mask through one 4 B load, K8a's mask
+// through one 4 B store — the widest access each operand allows, with
+// neighbouring threads on neighbouring 16 B.  The grid is ceil(n / 1024)
+// blocks of 256 threads (977 at 10^6 rows, ~7 per SM), no grid-stride
+// loop for the filter.  The vector path needs the values on a 16 B
+// boundary and the byte operands on 4 B; a view that starts elsewhere
+// (vals[1:]) takes the scalar path (one row per load) with the same
+// results.  K8b and K8d keep their first design: one row per thread in a
+// grid-stride loop, and K8d's fixed-shape second launch.
+//
+// K8c is one launch.  Each block sums a contiguous chunk of rows whose
+// bounds depend on n alone (a multiple of 1024 rows, at most kMaxBlocks
+// chunks); the mask is applied with a select (m ? v : 0.0), not a
+// branch, so every load is unconditional.  A block writes its partial,
+// fences, and takes a ticket with atomicAdd; the block that takes the
+// last ticket sums the partials in index order and resets the ticket for
+// the next launch.  The ticket lives after the partials in one scratch
+// buffer the wrapper zeroes once per (card, stream), so launches on two
+// streams never share one.  The summation order (per thread: its rows in
+// order; then fixed warp and block trees; then the partials in a fixed
+// tree) is a function of n alone, so every call gives the same bits
+// whichever block finishes last, and the scalar path adds in the same
+// order as the vector path.
 //
 // Semantics, as numpy gives them:
 //   * comparisons are IEEE (no fast-math): NaN != x is true, every other
 //     comparison with NaN is false, -0.0 == 0.0, +-inf compare normally,
 //     subnormals are kept (XLA's CPU backend flushes them to zero);
-//   * the sum's order is fixed for a given n (per-thread strided
-//     partials, then warp shuffles, then one final block over at most
-//     kMaxBlocks partials), so a result is deterministic;
+//   * a masked-in NaN or +-inf propagates through the sum; an empty mask
+//     or n = 0 sums to +0.0 (a sum that starts at +0.0 never becomes
+//     -0.0, so adding 0.0 for a masked-out row changes no bits);
 //   * min/max propagate a masked-in NaN (fmin/fmax would drop it) and
 //     order -0.0 below +0.0, as XLA's min/max do; an empty mask gives
 //     +inf / -inf.
@@ -34,8 +57,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;  // pass-1 blocks of a reduction
+constexpr int kMaxBlocks = 1024;  // K8d pass-1 blocks; K8c partials
 constexpr int64_t kGridCap = 132 * 32;
+// K8a/K8c: four rows per thread, 1024 rows per block.
+constexpr int kRows = 4;
+constexpr int64_t kBlockRows = (int64_t)kThreads * kRows;
+
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 enum { kEq = 0, kNe, kLt, kLe, kGt, kGe };
 
@@ -49,6 +77,42 @@ __device__ __forceinline__ bool compare(double v, double x) {
   return v >= x;
 }
 
+// One row: the mask byte (0 or 1).
+template <int OP>
+__device__ __forceinline__ uint32_t cmp_row(uint32_t valid, double v,
+                                            double x) {
+  return (uint32_t)((valid & 0xffu) != 0 && compare<OP>(v, x));
+}
+
+// K8a's vector path: rows 4t..4t+3 per thread (t the global thread), the
+// values as two double2, the validity and the mask as one 32-bit word.
+// The last thread with rows finishes a tail of n % 4 rows one by one.
+template <int OP>
+__global__ void __launch_bounds__(kThreads)
+    cmp4_kernel(const double* __restrict__ vals,
+                const uint8_t* __restrict__ valid, int64_t n, double operand,
+                uint8_t* __restrict__ out) {
+  const int64_t row = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kRows;
+  if (row + kRows <= n) {
+    const double2* v2 = reinterpret_cast<const double2*>(vals + row);
+    const double2 a = __ldg(v2);
+    const double2 b = __ldg(v2 + 1);
+    const uint32_t m =
+        __ldg(reinterpret_cast<const unsigned int*>(valid + row));
+    const uint32_t r = cmp_row<OP>(m, a.x, operand) |
+                       cmp_row<OP>(m >> 8, a.y, operand) << 8 |
+                       cmp_row<OP>(m >> 16, b.x, operand) << 16 |
+                       cmp_row<OP>(m >> 24, b.y, operand) << 24;
+    *reinterpret_cast<uint32_t*>(out + row) = r;
+  } else {
+    for (int64_t i = row; i < n; ++i) {
+      out[i] = (uint8_t)cmp_row<OP>(valid[i], vals[i], operand);
+    }
+  }
+}
+
+// K8a's scalar path (operands off the vector path's alignment): one row
+// per thread in a grid-stride loop.
 template <int OP>
 __global__ void cmp_kernel(const double* __restrict__ vals,
                            const uint8_t* __restrict__ valid, int64_t n,
@@ -106,24 +170,85 @@ __device__ double block_sum(double v) {
   return v;
 }
 
-__global__ void sum_partials(const double* __restrict__ vals,
-                             const uint8_t* __restrict__ mask, int64_t n,
-                             double* __restrict__ partials) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+// K8c: one launch.  Block b sums rows [b * chunk, min((b + 1) * chunk, n))
+// four at a time, thread t taking units t, t + 256, ... of its block's
+// chunk; VEC selects 16 B value loads and 4 B mask loads (both operands
+// aligned, chunk a multiple of 1024 rows), else one load per row.  The
+// scalar path adds the same four selected values in the same order, so
+// both give the same bits.  partials holds kMaxBlocks doubles, then the
+// 32-bit ticket (zero between launches).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sum_kernel(const double* __restrict__ vals,
+               const uint8_t* __restrict__ mask, int64_t n, int64_t chunk,
+               double* partials, double* __restrict__ out) {
+  const int64_t begin = (int64_t)blockIdx.x * chunk;
+  const int64_t end = begin + chunk < n ? begin + chunk : n;
   double acc = 0.0;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (mask[i]) acc += vals[i];
+  for (int64_t row = begin + (int64_t)threadIdx.x * kRows; row < end;
+       row += kBlockRows) {
+    double v0, v1, v2, v3;
+    uint32_t m;
+    if (VEC && row + kRows <= end) {
+      const double2* p = reinterpret_cast<const double2*>(vals + row);
+      const double2 a = __ldg(p);
+      const double2 b = __ldg(p + 1);
+      v0 = a.x, v1 = a.y, v2 = b.x, v3 = b.y;
+      m = __ldg(reinterpret_cast<const unsigned int*>(mask + row));
+    } else {
+      const int64_t left = end - row;
+      v0 = vals[row];
+      v1 = left > 1 ? vals[row + 1] : 0.0;
+      v2 = left > 2 ? vals[row + 2] : 0.0;
+      v3 = left > 3 ? vals[row + 3] : 0.0;
+      m = (uint32_t)mask[row] |
+          (left > 1 ? (uint32_t)mask[row + 1] << 8 : 0u) |
+          (left > 2 ? (uint32_t)mask[row + 2] << 16 : 0u) |
+          (left > 3 ? (uint32_t)mask[row + 3] << 24 : 0u);
+    }
+    acc += (m & 0xffu) ? v0 : 0.0;
+    acc += (m & 0xff00u) ? v1 : 0.0;
+    acc += (m & 0xff0000u) ? v2 : 0.0;
+    acc += (m & 0xff000000u) ? v3 : 0.0;
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+
+  __shared__ bool last;
+  unsigned int* ticket =
+      reinterpret_cast<unsigned int*>(partials + kMaxBlocks);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The last block: every partial is written and fenced.  Each thread
+  // loads its (at most four) partials past L1 (__ldcg) at once, adds them
+  // in index order, then the fixed block tree.
+  constexpr int kPer = kMaxBlocks / kThreads;
+  double mine[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    mine[k] = i < (int)gridDim.x ? __ldcg(partials + i) : 0.0;
+  }
+  double v = 0.0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v += mine[k];
+  v = block_sum(v);
+  if (threadIdx.x == 0) {
+    *out = v;
+    *ticket = 0u;
+  }
 }
 
-__global__ void sum_final(const double* __restrict__ partials, int count,
-                          double* __restrict__ out) {
-  double v = (int)threadIdx.x < count ? partials[threadIdx.x] : 0.0;
-  v = block_sum(v);
-  if (threadIdx.x == 0) *out = v;
+// Rows per K8c block: a multiple of 1024, large enough that at most
+// kMaxBlocks chunks cover n — a function of n alone.
+int64_t sum_chunk(int64_t n) {
+  const int64_t per =
+      ceil_div(ceil_div(n, kMaxBlocks), kBlockRows) * kBlockRows;
+  return per < kBlockRows ? kBlockRows : per;
 }
 
 // ---- min / max ----------------------------------------------------------
@@ -212,33 +337,39 @@ extern "C" {
 // scratch with it: one double per partial for the sum, two for min/max).
 int dbeel_query_partials(int64_t n) { return partial_blocks(n); }
 
+// Doubles of K8c's scratch: kMaxBlocks partials, then the ticket.  The
+// wrapper allocates it zeroed, once per (card, stream).
+int dbeel_query_sum_scratch() { return kMaxBlocks + 1; }
+
 int dbeel_query_cmp_f64(const double* vals, const uint8_t* valid, int64_t n,
                         double operand, int op, uint8_t* out,
                         cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int grid = grid_for(n);
+  const bool vec = (uintptr_t)vals % 16 == 0 && (uintptr_t)valid % 4 == 0 &&
+                   (uintptr_t)out % 4 == 0;
+  const int64_t blocks = ceil_div(n, kBlockRows);
+  if (vec && blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned grid = vec ? (unsigned)blocks : (unsigned)grid_for(n);
+#define DBEEL_CMP(OP)                                                      \
+  case OP:                                                                 \
+    if (vec)                                                               \
+      cmp4_kernel<OP><<<grid, kThreads, 0, stream>>>(vals, valid, n,       \
+                                                     operand, out);        \
+    else                                                                   \
+      cmp_kernel<OP><<<grid, kThreads, 0, stream>>>(vals, valid, n,        \
+                                                    operand, out);         \
+    break;
   switch (op) {
-    case kEq:
-      cmp_kernel<kEq><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
-    case kNe:
-      cmp_kernel<kNe><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
-    case kLt:
-      cmp_kernel<kLt><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
-    case kLe:
-      cmp_kernel<kLe><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
-    case kGt:
-      cmp_kernel<kGt><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
-    case kGe:
-      cmp_kernel<kGe><<<grid, kThreads, 0, stream>>>(vals, valid, n, operand, out);
-      break;
+    DBEEL_CMP(kEq)
+    DBEEL_CMP(kNe)
+    DBEEL_CMP(kLt)
+    DBEEL_CMP(kLe)
+    DBEEL_CMP(kGt)
+    DBEEL_CMP(kGe)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef DBEEL_CMP
   return (int)cudaGetLastError();
 }
 
@@ -251,13 +382,20 @@ int dbeel_query_range_f64(const double* vals, const uint8_t* valid, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// ``scratch``: dbeel_query_sum_scratch() doubles, zeroed before the first
+// launch on ``stream`` and left so by every launch.
 int dbeel_query_sum_f64(const double* vals, const uint8_t* mask, int64_t n,
-                        double* partials, double* out, cudaStream_t stream) {
-  const int blocks = partial_blocks(n);
-  sum_partials<<<blocks, kThreads, 0, stream>>>(vals, mask, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_final<<<1, kMaxBlocks, 0, stream>>>(partials, blocks, out);
+                        double* scratch, double* out, cudaStream_t stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  const int64_t chunk = sum_chunk(n);
+  const unsigned blocks = n == 0 ? 1u : (unsigned)ceil_div(n, chunk);
+  if ((uintptr_t)vals % 16 == 0 && (uintptr_t)mask % 4 == 0) {
+    sum_kernel<true><<<blocks, kThreads, 0, stream>>>(vals, mask, n, chunk,
+                                                      scratch, out);
+  } else {
+    sum_kernel<false><<<blocks, kThreads, 0, stream>>>(vals, mask, n, chunk,
+                                                       scratch, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,28 @@ dbeel_tpu/ops/query_kernels.py ``_kernels`` (:144):
   K8d min_max_f64 (:183) — ``(min(where(mask, vals, +inf)),
       max(where(mask, vals, -inf)))``, a masked-in NaN propagating
 
-What bounds them is bytes: 8 B of value and 1 B of validity read per
-row, 1 B of mask written (the filters) — at a 1M-row stage about 3 µs
-at 3.35 TB/s, the order of one launch.  So each is one pass, one
-thread per row, and the reductions take a fixed-shape second pass
-instead of atomics (a deterministic sum for a given n).
+What bounds them on the card is bytes: 8 B of value and 1 B of
+validity read per row, 1 B of mask written (the filters) — at a 1M-row
+stage about 3 µs at 3.35 TB/s, the order of one launch.  So each is
+one pass.  K8a and K8c take four rows per thread (16 B value loads,
+4 B mask loads and stores; a scalar path for views off that
+alignment), and K8c is one launch: each block's partial, then the last
+block to take a ticket sums the partials in index order (a sum whose
+order, and so whose bits, depend on n alone).  K8b and K8d keep one
+row per thread, K8d a fixed-shape second launch.  ``csrc/query.cu``
+describes the kernels.
+
+What bounds a call is mostly the host: at these sizes the device work
+is a few µs, less than the Python around a ctypes launch costs.  So
+the launch path is kept short: ``_bind`` resolves the library's
+functions (and the torch handles a launch needs) once, at first use,
+and later calls find them without a lock; each call makes its operand
+checks in one
+pass (``_check``), allocates its output, reads the launching thread's
+current stream as a raw handle (no ``torch.cuda.Stream`` object), makes
+one ctypes call and counts the launch.  K8c's scratch (partials and
+ticket) is allocated zeroed once per (card, stream) and reused, so two
+threads launching on two streams never share a ticket.
 
 Exactness: the mask is bit-equal to numpy's float64 comparison (IEEE:
 NaN != x is true, every other comparison with NaN false, -0.0 == 0.0);
@@ -61,26 +78,71 @@ MIN_DEVICE_ROWS = 4096
 _INF = float("inf")
 
 
-def _check(vals: torch.Tensor, mask: torch.Tensor) -> str:
-    if vals.dtype != torch.float64 or mask.dtype != torch.bool:
-        raise ValueError("want float64 values and a bool mask")
-    if vals.dim() != 1 or vals.shape != mask.shape:
-        raise ValueError(
-            f"want two 1-D tensors of one length, got "
-            f"{tuple(vals.shape)} and {tuple(mask.shape)}"
+_F64, _BOOL = torch.float64, torch.bool
+_OP_CODE = {op: i for i, op in enumerate(OPS)}
+
+
+def _check(vals: torch.Tensor, mask: torch.Tensor) -> int:
+    """The operands' card index, or -1 for CPU tensors; raises
+    ValueError unless both are contiguous 1-D tensors of one length on
+    one device, float64 values and a bool mask — one pass of cheap
+    tests, since a kernel call's time is mostly the host's."""
+    idx = vals.get_device()
+    if (
+        vals.dtype is _F64 and mask.dtype is _BOOL
+        and vals.dim() == 1 and vals.shape == mask.shape
+        and vals.is_contiguous() and mask.is_contiguous()
+        and mask.get_device() == idx
+        and (idx >= 0 or (vals.is_cpu and mask.is_cpu))
+    ):
+        return idx
+    got = " and ".join(
+        f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}"
+        for t in (vals, mask)
+    )
+    raise ValueError(
+        "want contiguous 1-D float64 values and a bool mask of one length "
+        f"on one cpu or cuda device, got {got}"
+    )
+
+
+class _Bound:
+    """The library's entries and the torch handles a launch needs,
+    resolved once (``_bind``)."""
+
+    __slots__ = ("cmp", "range", "sum", "min_max", "partials",
+                 "sum_scratch", "stream", "current")
+
+    def __init__(self, handle):
+        self.cmp = handle.dbeel_query_cmp_f64
+        self.range = handle.dbeel_query_range_f64
+        self.sum = handle.dbeel_query_sum_f64
+        self.min_max = handle.dbeel_query_min_max_f64
+        self.partials = handle.dbeel_query_partials
+        self.sum_scratch = handle.dbeel_query_sum_scratch()
+        # The launching thread's current stream on card i as a raw
+        # handle (no torch.cuda.Stream object), and its current card:
+        # always 0 where only one card is visible.
+        self.stream = torch._C._cuda_getCurrentRawStream
+        self.current = (
+            torch._C._cuda_getDevice if torch.cuda.device_count() > 1
+            else lambda: 0
         )
-    if not (vals.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("want contiguous tensors")
-    if vals.device != mask.device:
-        raise ValueError("both operands must lie on one device")
-    kind = vals.device.type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {kind}")
-    return kind
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+_bound: Optional[_Bound] = None
+# K8c's scratch by (card, stream handle): partials and a ticket, zeroed
+# once; the kernel leaves the ticket at zero.
+_sum_scratch: dict = {}
+
+
+def _bind() -> _Bound:
+    """Builds and binds ``csrc/query.cu`` at first use; later launches
+    read the module global and take no lock."""
+    global _bound
+    if _bound is None:
+        _bound = _Bound(_cuda.query_lib())
+    return _bound
 
 
 # ----------------------------------------------------------------------
@@ -142,14 +204,20 @@ def min_max_f64_plain(vals, mask) -> Tuple[torch.Tensor, torch.Tensor]:
 def cmp_f64(vals, valid, operand: float, op: str) -> torch.Tensor:
     """K8a — replaces dbeel_tpu/ops/query_kernels.py:154 cmp_f64.
     Bound (bytes): 9 B read and 1 B written per row."""
-    if op not in OPS:
+    code = _OP_CODE.get(op)
+    if code is None:
         raise ValueError(f"unknown comparison {op!r}")
-    if _check(vals, valid) == "cpu":
+    idx = _check(vals, valid)
+    if idx < 0:
         return cmp_f64_plain(vals, valid, operand, op)
-    out = torch.empty(vals.shape, dtype=torch.bool, device=vals.device)
-    rc = _cuda.query_lib().dbeel_query_cmp_f64(
-        vals.data_ptr(), valid.data_ptr(), vals.numel(), float(operand),
-        OPS.index(op), out.data_ptr(), _stream(vals),
+    b = _bound or _bind()
+    if b.current() != idx:
+        with torch.cuda.device(idx):
+            return cmp_f64(vals, valid, operand, op)
+    out = torch.empty_like(valid)
+    rc = b.cmp(
+        vals.data_ptr(), valid.data_ptr(), vals.numel(), float(operand), code,
+        out.data_ptr(), b.stream(idx),
     )
     _cuda.check(rc, "cmp_f64")
     _cuda.count("K8a")
@@ -161,13 +229,17 @@ def range_f64(vals, valid, lo: float, hi: float,
     """K8b — replaces dbeel_tpu/ops/query_kernels.py:170 range_f64
     (``hi`` exclusive).  Bound (bytes): 9 B read and 1 B written per
     row."""
-    if _check(vals, valid) == "cpu":
+    idx = _check(vals, valid)
+    if idx < 0:
         return range_f64_plain(vals, valid, lo, hi, use_lo, use_hi)
-    out = torch.empty(vals.shape, dtype=torch.bool, device=vals.device)
-    rc = _cuda.query_lib().dbeel_query_range_f64(
-        vals.data_ptr(), valid.data_ptr(), vals.numel(), float(lo),
-        float(hi), int(bool(use_lo)), int(bool(use_hi)), out.data_ptr(),
-        _stream(vals),
+    b = _bound or _bind()
+    if b.current() != idx:
+        with torch.cuda.device(idx):
+            return range_f64(vals, valid, lo, hi, use_lo, use_hi)
+    out = torch.empty_like(valid)
+    rc = b.range(
+        vals.data_ptr(), valid.data_ptr(), vals.numel(), float(lo), float(hi),
+        int(bool(use_lo)), int(bool(use_hi)), out.data_ptr(), b.stream(idx),
     )
     _cuda.check(rc, "range_f64")
     _cuda.count("K8b")
@@ -176,18 +248,28 @@ def range_f64(vals, valid, lo: float, hi: float,
 
 def sum_f64(vals, mask) -> torch.Tensor:
     """K8c — replaces dbeel_tpu/ops/query_kernels.py:179 sum_f64: a
-    0-d float64 tensor.  Bound (bytes): 9 B read per row."""
-    if _check(vals, mask) == "cpu":
+    0-d float64 tensor, its bits a function of the inputs alone (the
+    order of the sum depends on n only).  Bound (bytes): 9 B read per
+    row."""
+    idx = _check(vals, mask)
+    if idx < 0:
         return sum_f64_plain(vals, mask)
-    lib = _cuda.query_lib()
-    n = vals.numel()
-    partials = torch.empty(
-        lib.dbeel_query_partials(n), dtype=torch.float64, device=vals.device
-    )
-    out = torch.empty((), dtype=torch.float64, device=vals.device)
-    rc = lib.dbeel_query_sum_f64(
-        vals.data_ptr(), mask.data_ptr(), n, partials.data_ptr(),
-        out.data_ptr(), _stream(vals),
+    b = _bound or _bind()
+    if b.current() != idx:
+        with torch.cuda.device(idx):
+            return sum_f64(vals, mask)
+    stream = b.stream(idx)
+    scratch = _sum_scratch.get((idx, stream))
+    if scratch is None:
+        # Allocated and zeroed on this stream, before its first launch.
+        scratch = _sum_scratch.setdefault(
+            (idx, stream),
+            torch.zeros(b.sum_scratch, dtype=_F64, device=vals.device),
+        )
+    out = torch.empty((), dtype=_F64, device=vals.device)
+    rc = b.sum(
+        vals.data_ptr(), mask.data_ptr(), vals.numel(), scratch.data_ptr(),
+        out.data_ptr(), stream,
     )
     _cuda.check(rc, "sum_f64")
     _cuda.count("K8c")
@@ -198,18 +280,21 @@ def min_max_f64(vals, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8d — replaces dbeel_tpu/ops/query_kernels.py:183 min_max_f64:
     two 0-d float64 tensors (+inf / -inf for an empty mask).  Bound
     (bytes): 9 B read per row."""
-    if _check(vals, mask) == "cpu":
+    idx = _check(vals, mask)
+    if idx < 0:
         return min_max_f64_plain(vals, mask)
-    lib = _cuda.query_lib()
+    b = _bound or _bind()
+    if b.current() != idx:
+        with torch.cuda.device(idx):
+            return min_max_f64(vals, mask)
     n = vals.numel()
     partials = torch.empty(
-        2 * lib.dbeel_query_partials(n), dtype=torch.float64,
-        device=vals.device,
+        2 * b.partials(n), dtype=_F64, device=vals.device
     )
-    out = torch.empty(2, dtype=torch.float64, device=vals.device)
-    rc = lib.dbeel_query_min_max_f64(
+    out = torch.empty(2, dtype=_F64, device=vals.device)
+    rc = b.min_max(
         vals.data_ptr(), mask.data_ptr(), n, partials.data_ptr(),
-        out.data_ptr(), _stream(vals),
+        out.data_ptr(), b.stream(idx),
     )
     _cuda.check(rc, "min_max_f64")
     _cuda.count("K8d")

@@ -202,6 +202,75 @@ def test_sum_f64_within_bound(n):
         ), (name, want)
 
 
+# Odd lengths (the vector kernels' tails) and views that start 1-15
+# elements into the values and the mask (off the 16 B / 4 B boundaries
+# of K8a's and K8c's vector loads), with the two offsets different.
+ODD_LENGTHS = [1, 3, 1023, 1025, 4097, (1 << 20) + 3]
+OFFSETS = [(o, (7 * o + 3) % 16) for o in range(16)]
+SALTS = [0.25, -0.0, float("nan"), float("inf"), SUB]
+
+
+def _views(seed, n):
+    """A salted column of n + 15 rows, and its (values, mask) views of
+    n rows at every pair of OFFSETS, as torch views with those storage
+    offsets and as numpy arrays."""
+    vals, valid = _column(seed, n + 15)
+    tv, tm = _t(vals), _t(valid)
+    for ov, om in OFFSETS:
+        yield ((ov, om), tv[ov:ov + n], tm[om:om + n], vals[ov:ov + n],
+               valid[om:om + n])
+
+
+@pytest.mark.parametrize("n", ODD_LENGTHS)
+def test_cmp_f64_odd_lengths_and_offsets_equal_reference(n):
+    flush_operand = {x: float(_daz(x)) for x in SALTS}
+    for where, v, m, vals, valid in _views(500 + n, n):
+        assert (v.storage_offset(), m.storage_offset()) == where
+        flushed = _t(_daz(vals))
+        for op in OPS:
+            for x in SALTS + [float(vals[min(7, n - 1)])]:
+                got = tqk.cmp_f64(v, m, x, op).numpy()
+                host = {"==": np.equal, "!=": np.not_equal, "<": np.less,
+                        "<=": np.less_equal, ">": np.greater,
+                        ">=": np.greater_equal}[op](vals, x) & valid
+                assert np.array_equal(got, host), (where, op, x)
+                want = _jax("cmp", vals, valid, x, op)
+                got = tqk.cmp_f64(
+                    flushed, m, flush_operand.get(x, float(_daz(x))), op
+                ).numpy()
+                assert np.array_equal(got, want), (where, op, x)
+
+
+@pytest.mark.parametrize("n", [0] + ODD_LENGTHS)
+def test_sum_f64_odd_lengths_and_offsets_equal_reference(n):
+    for where, v, m, vals, valid in _views(600 + n, n):
+        fin = valid & np.isfinite(vals) & (np.abs(vals) != 1e308)
+        mask = _t(fin)
+        got = tqk.sum_f64(v, mask).item()
+        sel = vals[fin]
+        bound = max(n, 1) * 2.0**-52 * float(np.abs(sel).sum())
+        assert abs(got - math.fsum(sel.tolist())) <= bound, where
+        want = float(_jax("sum", vals, fin))
+        flushed = _daz(sel)
+        assert abs(want - math.fsum(flushed.tolist())) <= (
+            max(n, 1) * 2.0**-52 * float(np.abs(flushed).sum())
+        ), where
+        # An empty mask (and n = 0) sums to +0.0 on both sides.
+        empty = np.zeros(n, bool)
+        assert _bits(tqk.sum_f64(v, _t(empty)).item()) == _bits(0.0)
+        assert _bits(_jax("sum", vals, empty)) == _bits(0.0)
+    if n:
+        # A masked-in NaN propagates; the same row masked out does not.
+        vals, valid = _column(600 + n, n)
+        vals[n // 2] = float("nan")
+        nan_at = np.zeros(n, bool)
+        nan_at[n // 2] = True
+        assert math.isnan(tqk.sum_f64(_t(vals), _t(nan_at)).item())
+        assert math.isnan(float(_jax("sum", vals, nan_at)))
+        assert not math.isnan(tqk.sum_f64(_t(vals), _t(~nan_at & (
+            np.isfinite(vals) & (np.abs(vals) != 1e308)))).item())
+
+
 def test_kernel_wrappers_refuse_bad_operands():
     v = torch.zeros(8, dtype=torch.float64)
     m = torch.zeros(8, dtype=torch.bool)
@@ -303,6 +372,84 @@ def test_cuda_k8_equals_plain(cuda_device, n):
             bound = max(n, 1) * 2.0**-52 * float(np.abs(masked).sum())
             assert abs(got - math.fsum(masked.tolist())) <= bound, name
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ODD_LENGTHS)
+def test_cuda_k8a_odd_lengths_and_misaligned_views(cuda_device, n):
+    vals, valid = _column(700 + n, n + 15)
+    tv, tm = _t(vals).to(cuda_device), _t(valid).to(cuda_device)
+    for ov, om in OFFSETS:
+        v, m = tv[ov:ov + n], tm[om:om + n]
+        assert v.data_ptr() % 16 == (ov % 2) * 8
+        for op in OPS:
+            for x in ODD + [1.5, float(vals[ov + min(7, n - 1)])]:
+                assert torch.equal(
+                    tqk.cmp_f64(v, m, x, op), tqk.cmp_f64_plain(v, m, x, op)
+                ), (ov, om, op, x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0] + ODD_LENGTHS)
+def test_cuda_k8c_odd_lengths_and_misaligned_views(cuda_device, n):
+    vals, valid = _column(800 + n, n + 15)
+    vals[np.abs(vals) == 1e308] = 1.0  # math.fsum overflows on them
+    tv, tm = _t(vals).to(cuda_device), _t(valid).to(cuda_device)
+    fin_all = torch.isfinite(tv)
+    for ov, om in OFFSETS:
+        v = tv[ov:ov + n]
+        m = tm[om:om + n] & fin_all[ov:ov + n]
+        got = tqk.sum_f64(v, m).item()
+        sel = vals[ov:ov + n][m.cpu().numpy()]
+        bound = max(n, 1) * 2.0**-52 * float(np.abs(sel).sum())
+        assert abs(got - math.fsum(sel.tolist())) <= bound, (ov, om)
+        # The vector and the scalar path add in one order: a misaligned
+        # view sums to the bits of its aligned copy.
+        assert _bits(tqk.sum_f64(v.clone(), m.clone()).item()) == _bits(got)
+        assert _bits(tqk.sum_f64(v, torch.zeros_like(m)).item()) == _bits(0.0)
+        if n:
+            nan_in = m.clone()
+            nan_in[n // 2] = True
+            v_nan = v.clone()
+            v_nan[n // 2] = float("nan")
+            assert math.isnan(tqk.sum_f64(v_nan, nan_in).item())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k8c_bit_identical_repeated_and_on_two_streams(cuda_device):
+    import threading
+
+    n = 1_000_000
+    vals, valid = _column(900, n)
+    v = _t(vals).to(cuda_device)
+    m = _t(valid).to(cuda_device) & torch.isfinite(v)
+    want = _bits(tqk.sum_f64(v, m).item())
+    assert all(_bits(tqk.sum_f64(v, m).item()) == want for _ in range(20))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got, errors = [None, None], []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                outs = [tqk.sum_f64(v, m) for _ in range(50)]
+            streams[i].synchronize()
+            got[i] = [_bits(o.item()) for o in outs]
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert all(g == [want] * 50 for g in got)
+    # Each stream had a scratch (and a ticket) of its own.
+    keys = {(cuda_device.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(tqk._sum_scratch)
 
 
 # ----------------------------------------------------------------------
