@@ -17,7 +17,10 @@ Phases (any failure exits non-zero):
                 side by side.
   2. kernels  — K1-K9b at the shapes the main path gives
                 them, on adversarial data, each bit-equal to its plain
-                PyTorch version on the card (K8c's sum within
+                PyTorch version on the card; K2 and K3 (the merge path)
+                also on edge shapes — full prefix ties, one run holding
+                every row, all counts 0, K up to 256, J = 8 with empty
+                slots, odd out_rows (K8c's sum within
                 n * 2^-52 * sum|x| of math.fsum); K8a and K8c also on
                 odd lengths and misaligned views, K8c bit-identical over
                 repeated calls and on two streams at once; times the
@@ -187,6 +190,7 @@ def phase_facts(torch):
     if native.load() is None:
         raise RuntimeError("native library did not load")
     _cuda.lib()
+    _cuda.merge_path_lib()
     _cuda.query_lib()
     _cuda.dist_lib()
     log("build: " + ", ".join(f"{k} {v:.2f}s" for k, v in sorted(took.items()))
@@ -409,6 +413,81 @@ def _k8_edges(torch, np, Q, rng, odd, bit_err):
     return parts
 
 
+def _merge_path_edges(torch, np, B, rng, bit_err):
+    """K2 and K3 (csrc/merge_path.cu) off the main-path shapes, on the
+    card, each bit-equal to its plain version (the network): every row
+    tied on the prefix (hi = 1, so the tiles' cuts fall inside long
+    equal-prefix stretches), one run holding every row, all counts 0,
+    K in {1, 2, 16, 256} with their pack_bits, J = 1 and J = 8 with
+    empty slots, runs shorter than a tile, a job shorter than a packed
+    word, and out_rows of 1, of a non-multiple of the tile and of K*P.
+    Returns the number of cases."""
+    dev = torch.device("cuda")
+    T = lambda a: B.to_tensor(a, dev)  # noqa: E731
+
+    def counts_of(kind, j, k, p):
+        if kind == "zero":
+            return np.zeros((j, k), np.uint32)
+        if kind == "one_run":  # run 1 of each job holds every row
+            c = np.zeros((j, k), np.uint32)
+            c[:, min(1, k - 1)] = p
+            return c
+        c = rng.integers(0, p + 1, size=(j, k)).astype(np.uint32)
+        c[0, 0] = 0
+        c[-1, -1] = p
+        if kind == "empty_slots":
+            c[1::2] = 0
+        return c
+
+    # (J, K, P, hi, counts, pack_bits or None for rid_pack_bits(K))
+    packed = [
+        (1, 2, 8192, 1, "rand", None),
+        (1, 2, 8, 1, "rand", None),  # 16 rows: one padded word
+        (8, 16, 512, 1, "empty_slots", None),
+        (1, 256, 64, 3, "rand", None),
+        (2, 8, 4096, 2, "one_run", None),
+        (4, 8, 1024, 5, "zero", None),
+        (1, 1, 4096, 3, "rand", None),
+        (3, 4, 8, 2, "rand", 16),
+        (8, 8, 16384, 1, "empty_slots", 2),
+    ]
+    cases = 0
+    for j, k, p, hi, kind, pb in packed:
+        c = counts_of(kind, j, k, p)
+        pre, cnt = T(_sorted_runs(np, rng, j, k, p, 2, hi, c)), T(c)
+        pb = pb or B.rid_pack_bits(k)
+        if bit_err("K2", B.merge_runs_prefix64_packed_batch_kernel(pre, cnt, pb),
+                   B.prefix64_packed_plain(pre, cnt, pb)):
+            raise AssertionError(f"K2 edge (J={j}, K={k}, P={p}, hi={hi}, "
+                                 f"{kind}, pack_bits={pb}): differs")
+        cases += 1
+    # (K, P, hi, counts, out_rows)
+    top = [
+        (8, 8192, 1, "rand", 1),
+        (8, 8192, 1, "rand", 3000),
+        (8, 8192, 1, "rand", 8 * 8192),
+        (2, 4096, 2, "one_run", 2 * 4096),
+        (16, 1024, 1, "zero", 5000),
+        (256, 64, 3, "rand", 256 * 64),
+        (1, 4096, 2, "rand", 100),
+        (4, 8, 2, "rand", 32),
+        (2, 8, 1, "rand", 5),
+        (16, 2048, 1, "rand", 16 * 2048 - 1),
+    ]
+    for k, p, hi, kind, out_rows in top:
+        c = counts_of(kind, 1, k, p)
+        pre = T(_sorted_runs(np, rng, 1, k, p, 2, hi, c)[0])
+        cnt = T(c[0])
+        if bit_err("K3", B.merge_runs_prefix_kernel(pre, cnt, out_rows),
+                   B.prefix_top_plain(pre, cnt, out_rows)):
+            raise AssertionError(f"K3 edge (K={k}, P={p}, hi={hi}, {kind}, "
+                                 f"out_rows={out_rows}): differs")
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"K2/K3 merge-path edges: {cases} cases bit-equal to the network")
+    return cases
+
+
 def phase_kernels(torch, np):
     from dbeel_tpu_torch.ops import bitonic as B
 
@@ -532,6 +611,7 @@ def phase_kernels(torch, np):
         pre.numel() * 4 + cnt.numel() * 4
         + j * B.packed_words(k, p, pb) * 4,
         n1 * (k.bit_length() - 1) * 3,
+        source="dbeel_tpu_torch/csrc/merge_path.cu",
     )
     del key2, pre, vals
 
@@ -552,8 +632,12 @@ def phase_kernels(torch, np):
         lambda: torch.sort(key3, stable=True),
         pre3.numel() * 4 + cnt3.numel() * 4 + out_rows * 4,
         k * p * (k.bit_length() - 1) * 3,
+        source="dbeel_tpu_torch/csrc/merge_path.cu",
     )
     del key3, pre3
+    merge_path_cases = _merge_path_edges(torch, np, B, rng, bit_err)
+    for row in results[-2:]:
+        row["edge_cases"] = merge_path_cases
 
     # K4 (8, 2^15, 9): full stacks with ties on all 8 compared words.
     k, p = 8, 1 << 15

@@ -1,11 +1,9 @@
 // Bitonic merge network over K sorted runs — the compaction merge and
-// flush sort kernels of dbeel_tpu_torch (K1-K7 of PERF.md), for Hopper
-// (sm_90a).
+// flush sort kernels of dbeel_tpu_torch (K1 and K4-K7 of PERF.md), for
+// Hopper (sm_90a).  K2 and K3 are merge-path merges (csrc/merge_path.cu).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py:
 //   K1 merge_runs_prefix32_packed_batch_kernel  (bitonic.py:235, body :202)
-//   K2 merge_runs_prefix64_packed_batch_kernel  (bitonic.py:251, body :218)
-//   K3 merge_runs_prefix_kernel / _prefix_kernel_from_runs (:153, :379)
 //   K4 merge_runs_perm_kernel                    (bitonic.py:104, :81)
 //   K5 merge_runs_kernel / sort_stack_kernel     (bitonic.py:95, :114)
 //   K6 merge_runs_prefix_batch_kernel            (bitonic.py:284)
@@ -22,7 +20,7 @@
 // long keys sharing a 16-byte prefix, a length, a ts and a source).  The
 // reversal is fused into the first stage of each level: one thread owns
 // the two pairs (t, h-1-t) a reversal would exchange, so no pass is
-// spent on it.  The batch axis J of K1/K2/K6 needs nothing: runs are
+// spent on it.  The batch axis J of K1/K6 needs nothing: runs are
 // pow2-sized and the levels stop at K*P rows, so no level's pair ever
 // crosses a batch boundary.  K5's flush sort is the P = 1 case (every
 // row its own run): a one-row run reverses to itself, so its first
@@ -226,7 +224,7 @@ __global__ void pack_rids_kernel(const uint32_t* rows, uint64_t rows_per_b,
   out[g] = word;
 }
 
-// K3/K6 epilogue: per job j, the index column of its first out_rows
+// K6 epilogue: per job j, the index column of its first out_rows
 // rows, out[j, r] = rows[j * K*P + r][W-1].
 template <int W>
 __global__ void top_rows_kernel(const uint32_t* rows, uint64_t rows_per_j,
@@ -372,16 +370,6 @@ int dbeel_bitonic_prefix32_packed(const uint32_t* vals, const uint32_t* counts,
                             (cudaStream_t)stream);
 }
 
-// K2: prefixes (J,K,P,2) u32, same output; work holds J*K*P*3 u32.
-int dbeel_bitonic_prefix64_packed(const uint32_t* prefixes,
-                                  const uint32_t* counts, uint32_t j,
-                                  uint32_t k, uint32_t p, uint32_t pack_bits,
-                                  uint32_t* work, uint32_t* out,
-                                  void* stream) {
-  return packed_merge<3, 3>(prefixes, counts, j, k, p, pack_bits, work, out,
-                            (cudaStream_t)stream);
-}
-
 // K6: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out (J, out_rows) u32,
 // per job packed (run << logP) | pos with its iota restarting at 0 (the
 // JAX vmap of K3's body); work holds J*K*P*3 u32.  Bound: bytes (the
@@ -403,15 +391,6 @@ int dbeel_bitonic_prefix_top_batch(const uint32_t* prefixes,
     top_rows_kernel<3><<<blocks_for(total), kThreads, 0, st>>>(
         work, (uint64_t)k * p, out_rows, total, out);
   return (int)cudaGetLastError();
-}
-
-// K3: prefixes (K,P,2) u32, counts (K,) u32 -> out (out_rows,) u32 packed
-// (run << logP) | pos: K6 with one job; work holds K*P*3 u32.
-int dbeel_bitonic_prefix_top(const uint32_t* prefixes, const uint32_t* counts,
-                             uint32_t k, uint32_t p, uint32_t out_rows,
-                             uint32_t* work, uint32_t* out, void* stream) {
-  return dbeel_bitonic_prefix_top_batch(prefixes, counts, 1, k, p, out_rows,
-                                        work, out, stream);
 }
 
 // K4: stacks (K,P,9) u32 -> idx (K*P,) u32 + same (K*P,) bytes 0/1;

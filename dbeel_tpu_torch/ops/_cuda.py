@@ -2,9 +2,10 @@
 
 Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
 a shared library with a plain C interface, loaded with ctypes — one
-library per source (``bitonic.cu``: the merge networks K1-K7;
-``query.cu``: the filter kernels K8; ``dist.cu``: the sample sort's
-splitters and bucket scatter K9a/K9b), so the builds run side by side
+library per source (``bitonic.cu``: the merge networks K1 and K4-K7;
+``merge_path.cu``: the merge-path merges K2 and K3; ``query.cu``: the
+filter kernels K8; ``dist.cu``: the sample sort's splitters and bucket
+scatter K9a/K9b), so the builds run side by side
 and a change to one source rebuilds only its library.  A build runs at
 first use — never at import, so the CPU tests import this module on
 machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed in
@@ -29,7 +30,7 @@ from typing import Callable, Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("bitonic", "query", "dist")
+    for name in ("bitonic", "merge_path", "query", "dist")
 }
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = [
@@ -141,12 +142,6 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
     handle.dbeel_bitonic_prefix32_packed.argtypes = [
         vp, vp, u32, u32, u32, u32, vp, vp, vp,
     ]
-    handle.dbeel_bitonic_prefix64_packed.argtypes = [
-        vp, vp, u32, u32, u32, u32, vp, vp, vp,
-    ]
-    handle.dbeel_bitonic_prefix_top.argtypes = [
-        vp, vp, u32, u32, u32, vp, vp, vp,
-    ]
     handle.dbeel_bitonic_perm.argtypes = [
         vp, u32, u32, vp, vp, vp, vp,
     ]
@@ -159,13 +154,21 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
     handle.dbeel_bitonic_sort_dedup_cols.argtypes = [vp, u32, vp, vp, vp, vp]
     for fn in (
         handle.dbeel_bitonic_prefix32_packed,
-        handle.dbeel_bitonic_prefix64_packed,
-        handle.dbeel_bitonic_prefix_top,
         handle.dbeel_bitonic_perm,
         handle.dbeel_bitonic_merge_rows,
         handle.dbeel_bitonic_prefix_top_batch,
         handle.dbeel_bitonic_sort_dedup_cols,
     ):
+        fn.restype = ctypes.c_int
+
+
+def _bind_merge_path(handle: ctypes.CDLL) -> None:
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    for fn in (
+        handle.dbeel_merge_path_prefix64_packed,
+        handle.dbeel_merge_path_prefix_top,
+    ):
+        fn.argtypes = [vp, vp, u32, u32, u32, u32, vp, vp, vp]
         fn.restype = ctypes.c_int
 
 
@@ -205,6 +208,11 @@ def _bind_dist(handle: ctypes.CDLL) -> None:
 def lib() -> ctypes.CDLL:
     """The merge networks' library (``csrc/bitonic.cu``)."""
     return _load("bitonic", _bind_bitonic)
+
+
+def merge_path_lib() -> ctypes.CDLL:
+    """The merge-path merges' library (``csrc/merge_path.cu``)."""
+    return _load("merge_path", _bind_merge_path)
 
 
 def dist_lib() -> ctypes.CDLL:

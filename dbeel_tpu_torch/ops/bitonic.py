@@ -6,7 +6,10 @@ each pairing neighbouring runs (the odd one reversed, so the pair is a
 bitonic sequence) and sorting the pair with half-cleaner stages of
 strides P_l, P_l/2, ..., 1.  ``dbeel_tpu/ops/bitonic.py`` runs it as
 jax.jit programs on a TPU; here the six networks on the storage path
-are CUDA kernels written for Hopper (``csrc/bitonic.cu``):
+are CUDA kernels written for Hopper — K1 and K4-K6 the network stage
+for stage (``csrc/bitonic.cu``), K2 and K3 a merge-path merge
+(``csrc/merge_path.cu``), which may compare rows in another order
+because every word of their rows is compared (the source's note):
 
   K1 merge_runs_prefix32_packed_batch_kernel — pipeline, 1-word operand
   K2 merge_runs_prefix64_packed_batch_kernel — pipeline, exact 2 words
@@ -280,6 +283,27 @@ def merge_runs_prefix32_packed_batch_kernel(
     return out
 
 
+def _merge_path_work(j: int, k: int, p: int, device):
+    """Work halves of the merge-path kernels (csrc/merge_path.cu): one
+    per intermediate level, at most two (they ping-pong), of one idx
+    word a row; None for K <= 2, which has no intermediate level."""
+    halves = min(2, max(0, k.bit_length() - 2))
+    if not halves:
+        return None
+    return torch.empty(halves * j * k * p, dtype=torch.int32, device=device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_rows8(name: str, t: torch.Tensor) -> None:
+    """The merge-path kernels read a row's two words as one 8-byte
+    load."""
+    if t.data_ptr() % 8:
+        raise ValueError(f"{name}: want an 8-byte-aligned tensor")
+
+
 def merge_runs_prefix64_packed_batch_kernel(
     prefixes: torch.Tensor,  # (J, K, P, 2) u32 bits
     counts: torch.Tensor,  # (J, K)
@@ -288,26 +312,30 @@ def merge_runs_prefix64_packed_batch_kernel(
     """K2 — replaces dbeel_tpu/ops/bitonic.py:251
     merge_runs_prefix64_packed_batch_kernel: K1's merge on the exact
     2-word 8-byte prefixes (partitions whose shifted 1-word operand
-    would collapse dense clusters).  Bound (bytes): operand read once
-    plus packed output written once — 32 MiB + 2 MiB at (4, 8, 131072),
-    about 10.6 µs at 3.35 TB/s."""
+    would collapse dense clusters).  Each run must be sorted on its two
+    words, with rows past its count SENTINEL in both: then the merge
+    path (csrc/merge_path.cu, log2(K) launches) gives the network's
+    bits.  Bound (bytes): operand read once plus packed output written
+    once — 32 MiB + 2 MiB at (4, 8, 131072), about 10.6 µs at
+    3.35 TB/s."""
     j, k, p, _ = prefixes.shape
     _check_runs(k, p)
     _check("prefixes", prefixes, (j, k, p, 2))
     _check("counts", counts, (j, k))
+    if pack_bits not in (1, 2, 4, 8, 16):
+        raise ValueError(f"pack_bits {pack_bits} not in 1, 2, 4, 8, 16")
     if _device_kind(prefixes, counts) == "cpu":
         return prefix64_packed_plain(prefixes, counts, pack_bits)
+    _check_rows8("prefixes", prefixes)
     out = torch.empty(
         (j, packed_words(k, p, pack_bits)), dtype=torch.int32,
         device=prefixes.device,
     )
-    work = torch.empty(
-        j * k * p * 3, dtype=torch.int32, device=prefixes.device
-    )
+    work = _merge_path_work(j, k, p, prefixes.device)
     with torch.cuda.device(prefixes.device):
-        rc = _cuda.lib().dbeel_bitonic_prefix64_packed(
+        rc = _cuda.merge_path_lib().dbeel_merge_path_prefix64_packed(
             prefixes.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
-            work.data_ptr(), out.data_ptr(), _stream(prefixes),
+            _ptr(work), out.data_ptr(), _stream(prefixes),
         )
     _cuda.check(rc, "merge_runs_prefix64_packed_batch_kernel")
     _cuda.count("K2")
@@ -323,7 +351,10 @@ def merge_runs_prefix_kernel(
     merge_runs_prefix_kernel and its pipelined twin
     _prefix_kernel_from_runs (:379): K runs merged on (k0, k1, iota),
     the top ``out_rows`` packed ``(run << logP) | pos`` indices out.
-    Bound (bytes): operand read once plus ``out_rows`` words written —
+    Each run must be sorted on its two words, with rows past its count
+    SENTINEL in both: then the merge path (csrc/merge_path.cu, log2(K)
+    launches, none past ``out_rows``) gives the network's bits.  Bound
+    (bytes): operand read once plus ``out_rows`` words written —
     16 MiB + 8 MiB at (8, 2^18, 2) with 2M rows out, about 7.5 µs at
     3.35 TB/s."""
     k, p, _ = prefixes.shape
@@ -334,12 +365,13 @@ def merge_runs_prefix_kernel(
         raise ValueError(f"out_rows {out_rows} outside [0, {k * p}]")
     if _device_kind(prefixes, counts) == "cpu":
         return prefix_top_plain(prefixes, counts, out_rows)
+    _check_rows8("prefixes", prefixes)
     out = torch.empty(out_rows, dtype=torch.int32, device=prefixes.device)
-    work = torch.empty(k * p * 3, dtype=torch.int32, device=prefixes.device)
+    work = _merge_path_work(1, k, p, prefixes.device)
     with torch.cuda.device(prefixes.device):
-        rc = _cuda.lib().dbeel_bitonic_prefix_top(
-            prefixes.data_ptr(), counts.data_ptr(), k, p, out_rows,
-            work.data_ptr(), out.data_ptr(), _stream(prefixes),
+        rc = _cuda.merge_path_lib().dbeel_merge_path_prefix_top(
+            prefixes.data_ptr(), counts.data_ptr(), 1, k, p, out_rows,
+            _ptr(work), out.data_ptr(), _stream(prefixes),
         )
     _cuda.check(rc, "merge_runs_prefix_kernel")
     _cuda.count("K3")

@@ -440,15 +440,16 @@ def _no_index_runs(index_fields) -> None:
     asked to emit them refuses instead of silently dropping them."""
     if index_fields:
         raise NotImplementedError(
-            "secondary-index runs are not ported yet (ROADMAP.md, "
-            "'LSMTree scan, index and query methods')"
+            "secondary-index runs are not ported yet "
+            "(ROADMAP.md Queue 1 item 3: secondary indexes)"
         )
 
 
-# Backends of dbeel_tpu that later slices of the port bring over
-# (ROADMAP.md, "Port: still to port").
+# Backends of dbeel_tpu that later slices of the port bring over, each
+# with its ROADMAP.md item.
 _NOT_PORTED = {
-    "native": "the C++ k-way merge strategy (NativeMergeStrategy)",
+    "native": "Queue 1 item 2: the C++ k-way merge strategy "
+    "(NativeMergeStrategy)",
 }
 
 
@@ -504,7 +505,7 @@ def get_strategy(name: str, device=None) -> CompactionStrategy:
         return CoalescedDeviceMergeStrategy(default_coalescer(device))
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"compaction backend {name!r} is not ported yet: "
-            f"ROADMAP.md, 'Port: still to port' — {_NOT_PORTED[name]}"
+            f"compaction backend {name!r} is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[name]})"
         )
     raise ValueError(f"unknown compaction backend {name!r}")

@@ -7,11 +7,21 @@ words, sentinel rows and full 8-column ties included — because the
 port reproduces the JAX network stage for stage, not only its sorted
 result.  The ``cuda`` cases hold each CUDA kernel against its plain
 version on a card and skip without one.
+
+K2 and K3 run on the card as a merge-path merge (csrc/merge_path.cu),
+not the network.  What allows it: where every word of a row is compared
+(K1, K2, K3, K6), the network's output on sorted, sentinel-padded runs
+is the rows' unique sorted sequence.  A hypothesis test holds dbeel_tpu's
+K1, K2, K3 and K6 to a numpy model that sorts the rows with np.lexsort;
+the ``cuda`` cases hold the merge-path kernels to their plain versions
+on the same generator and at the main path's shapes.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dbeel_tpu.ops import bitonic as jb
 from dbeel_tpu.storage import columnar as jcol
@@ -21,16 +31,17 @@ from dbeel_tpu_torch.storage import columnar as tcol
 SENT = 0xFFFFFFFF
 
 
-def _runs(rng, j, k, p, words, hi, counts):
+def _runs(rng, j, k, p, words, hi, counts, salt=0.1):
     """Sentinel-padded sorted runs (j, k, p[, words]) u32 with heavy
-    duplicates (values below ``hi``) and 0xFFFFFFFF inside valid rows."""
+    duplicates (values below ``hi``) and 0xFFFFFFFF inside valid rows
+    (at rate ``salt``)."""
     shape = (j, k, p) + ((words,) if words > 1 else ())
     out = np.full(shape, SENT, dtype=np.uint32)
     for jj in range(j):
         for r in range(k):
             c = int(counts[jj, r])
             v = rng.integers(0, hi, size=(c, words), dtype=np.uint64)
-            v[rng.random(c) < 0.1] = SENT
+            v[rng.random(c) < salt] = SENT
             v = v[np.lexsort(v.T[::-1])] if c else v
             out[jj, r, :c] = v if words > 1 else v[:, 0]
     return out
@@ -129,6 +140,11 @@ def test_wrappers_refuse_bad_operands():
         )
     with pytest.raises(ValueError):  # int64 operand
         tb.merge_runs_perm_kernel(torch.zeros((2, 8, 9), dtype=torch.int64))
+    with pytest.raises(ValueError, match="pack_bits"):  # not a word divisor
+        tb.merge_runs_prefix64_packed_batch_kernel(
+            torch.zeros((1, 2, 8, 2), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32), 3,
+        )
 
 
 def _cols(rng, n_runs, per_run):
@@ -221,4 +237,109 @@ def test_cuda_kernels_equal_plain(cuda_device, j, k, p):
     st = tb.to_tensor(_stacks(rng, k, min(p, 4096)), cuda_device)
     for got, want in zip(tb.merge_runs_perm_kernel(st), tb.perm_plain(st)):
         assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------
+# The merge-path equivalence: a row's every word compared (W == NCMP)
+# ----------------------------------------------------------------------
+
+
+def _merge_case(seed, j, k, p, hi, salt, words):
+    """_runs with an empty run, a full run and, for J > 1, every other
+    job empty."""
+    rng = np.random.default_rng(seed)
+    counts = _counts(rng, j, k, p)
+    if j > 1:
+        counts[1::2] = 0
+    return _runs(rng, j, k, p, words, hi, counts, salt), counts
+
+
+def _model_idx(runs, counts):
+    """Per job, the idx column of the rows (key words..., idx) sorted
+    with np.lexsort: (J, K*P) u32."""
+    j, k, p = runs.shape[:3]
+    keys = runs.reshape(j, k * p, -1).astype(np.uint64)
+    pos = np.arange(p, dtype=np.uint64)
+    iota = np.arange(k, dtype=np.uint64)[:, None] * p + pos
+    out = np.empty((j, k * p), np.uint32)
+    for jj in range(j):
+        idx = np.where(pos[None] < counts[jj][:, None], iota, SENT).ravel()
+        cols = [idx] + [keys[jj, :, c] for c in range(keys.shape[2] - 1, -1, -1)]
+        out[jj] = idx[np.lexsort(cols)]
+    return out
+
+
+def _model_packed(idx, p, pack_bits):
+    """_pack_rids in numpy: run ids, pack_bits each, low bits first."""
+    per = 32 // pack_bits
+    j, n = idx.shape
+    pad = np.full((j, (-n) % per), SENT, np.uint32)
+    rid = (np.concatenate([idx, pad], 1).astype(np.uint64)
+           >> np.uint64(p.bit_length() - 1)) & np.uint64((1 << pack_bits) - 1)
+    shifts = np.arange(per, dtype=np.uint64) * np.uint64(pack_bits)
+    return (rid.reshape(j, -1, per) << shifts).sum(-1).astype(np.uint32)
+
+
+_merge_params = st.tuples(
+    st.integers(0, 2**31),  # seed
+    st.sampled_from([1, 2, 8, 16]),  # J
+    st.sampled_from([1, 2, 8, 16]),  # K
+    st.sampled_from([8, 16, 64, 256, 1024]),  # P
+    st.integers(1, 5),  # hi: heavy duplicates
+    st.sampled_from([0.0, 0.1, 0.5]),  # 0xFFFFFFFF salt
+    st.floats(0.0, 1.0),  # where out_rows falls in [1, K*P]
+)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K6"])
+@settings(max_examples=10, deadline=None, database=None)
+@given(_merge_params)
+def test_jax_merges_equal_lexsort_model(kernel, params):
+    seed, j, k, p, hi, salt, frac = params
+    if k * p * j > 1 << 14:  # keep each JAX compile small
+        p = max(8, (1 << 14) // (k * j))
+    words = 1 if kernel == "K1" else 2
+    runs, counts = _merge_case(seed, j, k, p, hi, salt, words)
+    idx = _model_idx(runs, counts)
+    out_rows = max(1, min(k * p, int(frac * k * p)))
+    if kernel in ("K1", "K2"):
+        pb = jb.rid_pack_bits(k)
+        fn = (jb.merge_runs_prefix32_packed_batch_kernel if kernel == "K1"
+              else jb.merge_runs_prefix64_packed_batch_kernel)
+        got, want = fn(runs, counts, pb), _model_packed(idx, p, pb)
+    elif kernel == "K3":
+        got = jb.merge_runs_prefix_kernel(runs[0], counts[0], out_rows)
+        want = idx[0, :out_rows]
+    else:
+        got = jb.merge_runs_prefix_batch_kernel(runs, counts, out_rows)
+        want = idx[:, :out_rows]
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+# The generator's cases for the card: (seed, J, K, P, hi, salt, out_rows).
+MERGE_PATH_CASES = [
+    (1, 1, 2, 8, 1, 0.1, 5),
+    (2, 8, 16, 64, 1, 0.1, 1000),
+    (3, 2, 8, 1024, 3, 0.5, 1),
+    (4, 16, 1, 256, 2, 0.0, 100),
+    (5, 1, 16, 1024, 5, 0.1, 16 * 1024),
+    (6, 2, 2, 8192, 1, 0.0, 3 * 2048 + 7),
+    (7, 4, 8, 131072, 1 << 12, 0.01, 8 * 131072),  # K2's main-path shape
+    (8, 1, 8, 1 << 18, 1 << 16, 0.01, 1 << 21),  # K3's main-path shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MERGE_PATH_CASES)
+def test_cuda_merge_path_equals_plain(cuda_device, case):
+    seed, j, k, p, hi, salt, out_rows = case
+    runs, counts = _merge_case(seed, j, k, p, hi, salt, 2)
+    x = tb.to_tensor(runs, cuda_device)
+    c = tb.to_tensor(counts, cuda_device)
+    for pb in sorted({tb.rid_pack_bits(k), 16}):
+        got = tb.merge_runs_prefix64_packed_batch_kernel(x, c, pb)
+        assert torch.equal(got, tb.prefix64_packed_plain(x, c, pb))
+    got = tb.merge_runs_prefix_kernel(x[0], c[0], out_rows)
+    assert torch.equal(got, tb.prefix_top_plain(x[0], c[0], out_rows))
     torch.cuda.synchronize()

@@ -226,7 +226,7 @@ def test_get_strategy_coalesced_and_sync_merge(tmp_dir, monkeypatch):
             os.unlink(os.path.join(tmp_dir, f))
     assert out["coalesced"] == out["heap"] and out["heap"]
     s.index_fields = ["score"]
-    with pytest.raises(NotImplementedError, match="secondary-index"):
+    with pytest.raises(NotImplementedError, match="secondary-index.*Queue 1 item 3"):
         asyncio.run(s.merge_async(
             [TSSTable(tmp_dir, i, None) for i in idx], tmp_dir, 11, None,
             False, 1))

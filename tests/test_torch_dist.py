@@ -552,7 +552,7 @@ def test_distributed_strategy_files_identical(tmp_dir, keep):
 def test_distributed_strategy_refuses_index_runs(tmp_dir):
     strategy = tdm.DistributedMergeStrategy(cpu_mesh(2))
     strategy.index_fields = ["score"]
-    with pytest.raises(NotImplementedError, match="secondary-index"):
+    with pytest.raises(NotImplementedError, match="secondary-index.*Queue 1 item 3"):
         strategy.merge([], tmp_dir, 1, None, False, 1)
 
 

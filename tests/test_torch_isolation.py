@@ -56,7 +56,8 @@ def test_device_strategies_need_a_card_or_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_strategy(name)
         assert get_strategy(name, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 2"):
         get_strategy("native")
     with pytest.raises(ValueError):
         get_strategy("nonsense")
