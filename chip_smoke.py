@@ -21,9 +21,13 @@ Phases (any failure exits non-zero):
                 also on edge shapes — full prefix ties, one run holding
                 every row, all counts 0, K up to 256, J = 8 with empty
                 slots, odd out_rows (K8c's sum within
-                n * 2^-52 * sum|x| of math.fsum); K8a and K8c also on
-                odd lengths and misaligned views, K8c bit-identical over
-                repeated calls and on two streams at once; times the
+                n * 2^-52 * sum|x| of math.fsum); K5 also at the mesh's
+                final sort (524288, 9), and on edge shapes (N of 1 to
+                two tiles, long runs with P > 1, the per-stage launches
+                past N = tile^2/2);
+                K8a, K8c and K8d also on odd lengths and misaligned
+                views, K8c and K8d bit-identical over repeated calls and
+                on two streams at once; times the
                 kernel, the plain version and one library call with CUDA
                 events, the kernel's own device time with torch.profiler
                 and the host's time per call.
@@ -229,39 +233,62 @@ def _time_cuda(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, calls: int = 20):
-    """The device time per call of the repository's own kernels in
-    ``fn``, with the host out of the way: torch.profiler over ``calls``
-    calls after one warm-up, the device time of every kernel of csrc/
-    (their demangled names lie in the sources' anonymous namespace;
-    PyTorch's own kernels, copies and fills are left out) summed by name
-    and divided by ``calls``.  Returns (ms, the kernels' launches per
-    call, their names); raises if the trace holds none of them."""
+def _kernel_events(torch, fn, calls: int = 20):
+    """The device events of the repository's own kernels in ``calls``
+    calls of ``fn`` (after one warm-up), in start order: a torch.profiler
+    trace's kernels of csrc/ (their demangled names lie in the sources'
+    anonymous namespace; PyTorch's own kernels, copies and fills are
+    left out).  A trace whose count is not a multiple of ``calls`` lost
+    events (once in a whole run, at K5's 2^19 shape) and is taken again,
+    at most three times in all."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    us, launches, names = 0.0, 0, []
-    for ev in prof.key_averages():
-        key = ev.key
-        if "(anonymous namespace)::" not in key or "at::" in key:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            us += dev_us
-            launches += ev.count
-            names.append(key.split("::", 1)[1].split("(", 1)[0])
-    if not launches:
-        raise AssertionError("no kernel of csrc/ in the profiler's trace")
-    return us / calls / 1e3, launches / calls, sorted(names)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted(
+            (e for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "(anonymous namespace)::" in e.name
+             and "at::" not in e.name),
+            key=lambda e: e.time_range.start,
+        )
+        if evs and len(evs) % calls == 0:
+            return evs
+    raise AssertionError(f"{len(evs)} kernel events over {calls} calls")
+
+
+def _kernel_name(ev):
+    return ev.name.split("::", 1)[1].split("(", 1)[0]
+
+
+def _device_ms(torch, fn, calls: int = 20):
+    """The device time per call of the repository's own kernels in
+    ``fn``, with the host out of the way: their events' device time over
+    ``calls`` calls (``_kernel_events``), divided by ``calls``.  Returns
+    (ms, the kernels' launches per call, their names)."""
+    evs = _kernel_events(torch, fn, calls)
+    us = sum(e.time_range.elapsed_us() for e in evs)
+    names = sorted({_kernel_name(e) for e in evs})
+    return us / calls / 1e3, len(evs) / calls, names
+
+
+def _pass_profile(torch, fn, calls: int = 20):
+    """The device µs of each launch of a call of ``fn`` by its place in
+    the call, as [kernel, µs] (the mean over ``calls`` calls)."""
+    evs = _kernel_events(torch, fn, calls)
+    per = len(evs) // calls
+    return [
+        [_kernel_name(evs[i]),
+         sum(evs[c * per + i].time_range.elapsed_us()
+             for c in range(calls)) / calls]
+        for i in range(per)
+    ]
 
 
 def _host_us(torch, fn, calls: int = 100) -> float:
@@ -301,14 +328,16 @@ def _sorted_runs(np, rng, j, k, p, words, hi, counts):
 
 
 def _k8_edges(torch, np, Q, rng, odd, bit_err):
-    """K8a and K8c off the scan shape, on the card: odd lengths (the
+    """K8a, K8c and K8d off the scan shape, on the card: odd lengths (the
     vector kernels' tails), views 1-15 elements into the values and the
     mask (the scalar path: the values off 16 B, the mask off 4 B, the
     two offsets different), every op against the salted operands; K8c
     within n * 2^-52 * sum|x| of math.fsum, bit-equal to the sum of the
     view's aligned copy, +0.0 for an empty mask and n = 0, NaN
     propagated, bit-identical over repeated calls and from two threads
-    on two streams at once."""
+    on two streams at once; K8d bit-equal to its plain version and to
+    the view's aligned copy (the mask as it is, and empty), and
+    bit-identical over repeated calls and on two streams."""
     dev = torch.device("cuda")
     lengths = (1, 3, 1023, 1025, 4097, (1 << 20) + 3)
     offsets = [(o, (7 * o + 3) % 16) for o in range(16)]
@@ -331,6 +360,12 @@ def _k8_edges(torch, np, Q, rng, odd, bit_err):
                                 f"K8a n={n} offsets {ov},{om} {op} {x}: "
                                 "masks differ")
                         checks += 1
+            for mk in (m, torch.zeros_like(m)):
+                mm = Q.min_max_f64(v, mk)
+                if bit_err("K8d", mm, Q.min_max_f64_plain(v, mk)) or bit_err(
+                        "K8d", mm, Q.min_max_f64(v.clone(), mk.clone())):
+                    raise AssertionError(f"K8d n={n} offsets {ov},{om}: "
+                                         "min/max differ")
             mf = finite[om:om + n] & torch.isfinite(v)
             got = Q.sum_f64(v, mf).item()
             sel = base_np[ov:ov + n][mf.cpu().numpy()]
@@ -355,33 +390,49 @@ def _k8_edges(torch, np, Q, rng, odd, bit_err):
     want = Q.sum_f64(v, m).item().hex()
     if any(Q.sum_f64(v, m).item().hex() != want for _ in range(20)):
         raise AssertionError("K8c: repeated calls gave other bits")
+    # K8d likewise, with a NaN masked in on one stream and out on the
+    # other.
+    mn = [valid[:n], m]
+
+    def bits(out):
+        return [x.item().hex() for x in (out if isinstance(out, tuple)
+                                         else (out,))]
+
+    want_mm = [bits(Q.min_max_f64(v, mk)) for mk in mn]
+    if any(bits(Q.min_max_f64(v, mn[0])) != want_mm[0] for _ in range(20)):
+        raise AssertionError("K8d: repeated calls gave other bits")
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
-    got, errors = [None, None], []
-
-    def run(i):
-        try:
-            with torch.cuda.stream(streams[i]):
-                outs = [Q.sum_f64(v, m) for _ in range(50)]
-            streams[i].synchronize()
-            got[i] = [o.item().hex() for o in outs]
-        except Exception as e:  # reported below
-            errors.append(e)
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors or any(g != [want] * 50 for g in got):
-        raise AssertionError(
-            f"K8c on two streams: {errors or 'other bits'}")
     keys = {(torch.cuda.current_device(), s.cuda_stream) for s in streams}
-    if not keys <= set(Q._sum_scratch):
-        raise AssertionError("K8c: two streams shared one scratch")
-    log(f"K8a/K8c edges: {checks} checks over lengths 0-{lengths[-1]} and "
-        f"{len(offsets)} offset pairs; K8c bit-identical over 20 calls and "
-        f"2 streams x 50 calls ({want})")
+    for name, calls, wants, store in (
+        ("K8c", [lambda: Q.sum_f64(v, m)] * 2, [[want]] * 2, Q._sum_scratch),
+        ("K8d", [lambda i=i: Q.min_max_f64(v, mn[i]) for i in range(2)],
+         want_mm, Q._min_max_scratch),
+    ):
+        got, errors = [None, None], []
+
+        def run(i):
+            try:
+                with torch.cuda.stream(streams[i]):
+                    outs = [calls[i]() for _ in range(50)]
+                streams[i].synchronize()
+                got[i] = [bits(o) for o in outs]
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors or any(got[i] != [wants[i]] * 50 for i in range(2)):
+            raise AssertionError(
+                f"{name} on two streams: {errors or 'other bits'}")
+        if not keys <= set(store):
+            raise AssertionError(f"{name}: two streams shared one scratch")
+    log(f"K8a/K8c/K8d edges: {checks} checks over lengths 0-{lengths[-1]} "
+        f"and {len(offsets)} offset pairs; K8c and K8d bit-identical over "
+        f"20 calls and 2 streams x 50 calls ({want}, {want_mm})")
     # What one K8a call at the scan shape spends on the host, part by
     # part (µs per call, 2000 calls each), beside the whole call, one
     # torch.lt and the torch.cuda.Stream object the wrappers no longer
@@ -488,6 +539,67 @@ def _merge_path_edges(torch, np, B, rng, bit_err):
     return cases
 
 
+def _timings_text(t) -> str:
+    plain = "" if t.get("plain_ms") is None else f" plain_ms={t['plain_ms']:.3f}"
+    return (f"ms={t['ms']:.4f} device_ms={t['device_ms']:.5f} "
+            f"host_us={t['host_us']:.2f}{plain} "
+            f"bound_ms={t['bound_ms']:.5f} "
+            f"kernels={t['device_launches_per_call']:g}x{t['device_kernels']}")
+
+
+def _k5_stack(np, rng, n, real):
+    """K5's operand at the flush shape (131072, 9), or a slot of the
+    mesh's final sort: of n rows, half are flush rows (random 16 B keys,
+    length 16, cols 5-7 zero), a quarter tie on all 8 compared words,
+    the rest hold random words; col 8 is distinct; rows from ``real``
+    on are sentinel rows (a memtable short of a power of two, or a
+    slot's padding)."""
+    st = rng.integers(0, 1 << 32, size=(n, 9), dtype=np.uint64)
+    st = st.astype(np.uint32)
+    st[: n // 2, 4] = 16
+    st[: n // 2, 5:8] = 0
+    st[n // 2: 3 * n // 4, :8] = rng.integers(
+        0, 2, size=(n // 4, 8), dtype=np.uint64
+    ).astype(np.uint32)
+    st[:, 8] = rng.permutation(n).astype(np.uint32)
+    st[real:] = 0xFFFFFFFF
+    return st
+
+
+def _k5_edges(torch, np, B, rng, bit_err):
+    """K5's grouped schedule off the main-path shapes, on the card, each
+    bit-equal to its plain version (the network): N of 1, 2, 4, half a
+    tile, a tile and two tiles (a tile is 1024 rows) with full 8-word
+    ties and a sentinel tail; long runs (K, P) = (8, 2^14) and
+    (2, 2^16); and N = 2^20, past tile^2/2, whose last level takes
+    run_network's per-stage launches.  Returns the cases' names."""
+    dev = torch.device("cuda")
+
+    def ties(k, p):
+        n = k * p
+        flat = rng.integers(0, 2, size=(n, 9), dtype=np.uint64)
+        flat = flat.astype(np.uint32)
+        flat[:, 8] = rng.permutation(n).astype(np.uint32)
+        flat[n - n // 8:] = 0xFFFFFFFF
+        st = flat.reshape(k, p, 9)
+        if p > 1:  # a one-row run is sorted already
+            for r in range(k):
+                st[r] = st[r][np.lexsort(st[r, :, :8].T[::-1])]
+        return B.to_tensor(st, dev)
+
+    cases = [(n, 1) for n in (1, 2, 4, 512, 1024, 2048, 1 << 20)]
+    cases += [(8, 1 << 14), (2, 1 << 16)]
+    names = []
+    for k, p in cases:
+        st = ties(k, p)
+        if bit_err("K5", B.merge_runs_kernel(st), B.merge_rows_plain(st)):
+            raise AssertionError(f"K5 edge (K={k}, P={p}): differs")
+        names.append(f"K={k} P={p}")
+    torch.cuda.synchronize()
+    log(f"K5 edges: {len(names)} cases bit-equal to the network")
+    return names
+
+
 def phase_kernels(torch, np):
     from dbeel_tpu_torch.ops import bitonic as B
 
@@ -513,6 +625,27 @@ def phase_kernels(torch, np):
             err = max(err, int((g - w).abs().max().item()))
         return err
 
+    def measure(kernel, plain, nbytes, ops):
+        """A kernel call's times at one shape: ``ms`` (CUDA events),
+        ``device_ms`` and its launches a call (torch.profiler),
+        ``host_us``, the plain version's ``plain_ms`` and the bound."""
+        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ops = ops / PEAK_OPS_PER_S * 1e3
+        device_ms, per_call, names = _device_ms(torch, kernel, 20)
+        return {
+            "ms": _time_cuda(torch, kernel, 20),
+            "device_ms": device_ms,
+            # At most ~256 launches queued (K7 makes 66 per call).
+            "host_us": _host_us(
+                torch, kernel, max(5, min(100, int(256 // per_call)))
+            ),
+            "device_kernels": names,
+            "device_launches_per_call": per_call,
+            "plain_ms": _time_cuda(torch, plain, 3) if plain else None,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        }
+
     def record(name, fn, replaces, kernel, plain, library, nbytes, ops,
                module="bitonic", check=None, source=None, wrapper=None):
         """``check(got, want)`` returns the max abs error within its
@@ -529,10 +662,6 @@ def phase_kernels(torch, np):
                                      f"(max abs err {err})")
         else:
             err = check(got, want)
-        bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound_ops = ops / PEAK_OPS_PER_S * 1e3
-        ms = _time_cuda(torch, kernel, 20)
-        device_ms, per_call, names = _device_ms(torch, kernel, 20)
         row = {
             "name": name,
             "route": "cuda",
@@ -543,26 +672,14 @@ def phase_kernels(torch, np):
             "launches": 0,
             "bit_equal": check is None,
             "max_abs_err": err,
-            "ms": ms,
-            "device_ms": device_ms,
-            # At most ~256 launches queued (K7 makes 66 per call).
-            "host_us": _host_us(
-                torch, kernel, max(5, min(100, int(256 // per_call)))
-            ),
-            "device_kernels": names,
-            "device_launches_per_call": per_call,
-            "plain_ms": _time_cuda(torch, plain, 3),
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            **measure(kernel, plain, nbytes, ops),
             "library_ms": (
                 _time_cuda(torch, library, 20) if library else None
             ),
         }
         log(f"{name}: {'bit_equal' if check is None else 'within bound'} "
-            f"max_abs_err={err} ms={row['ms']:.4f} "
-            f"device_ms={device_ms:.5f} host_us={row['host_us']:.2f} "
-            f"plain_ms={row['plain_ms']:.3f} bound_ms={row['bound_ms']:.5f} "
-            f"library_ms={row['library_ms']} kernels={per_call:g}x{names}")
+            f"max_abs_err={err} {_timings_text(row)} "
+            f"library_ms={row['library_ms']}")
         results.append(row)
 
     def as_signed(key_u64):
@@ -658,32 +775,53 @@ def phase_kernels(torch, np):
     )
     del stacks
 
-    # K5 (131072, 9): the flush sort's shape — one row per run (P = 1).
-    # Half the rows are flush rows (random 16 B keys, length 16, cols
-    # 5-7 zero), a quarter tie on all 8 compared words, then random
-    # words and a sentinel tail (a memtable short of a power of two).
+    # K5 (131072, 9): the flush sort's shape — one row per run (P = 1),
+    # a 1000-row sentinel tail.  Then the mesh's final sort (524288, 9):
+    # 4 received slots of 65568 rows (65536 flush rows and 32 sentinel
+    # rows each) padded to a power of two, about half sentinel.
+    def k5_bound(n):
+        levels = n.bit_length() - 1
+        return n * 9 * 4 * 2 + n, n // 2 * (levels * (levels + 1) // 2) * 8
+
     n = SHARD_CAPACITY
-    st5 = rng.integers(0, 1 << 32, size=(n, 9), dtype=np.uint64)
-    st5 = st5.astype(np.uint32)
-    st5[: n // 2, 4] = 16
-    st5[: n // 2, 5:8] = 0
-    st5[n // 2: 3 * n // 4, :8] = rng.integers(
-        0, 2, size=(n // 4, 8), dtype=np.uint64
-    ).astype(np.uint32)
-    st5[:, 8] = rng.permutation(n).astype(np.uint32)
-    st5[n - 1000:] = 0xFFFFFFFF
-    stack5 = T(st5)
-    levels5 = n.bit_length() - 1
+    stack5 = T(_k5_stack(np, rng, n, n - 1000))
     record(
         "K5", "sort_stack_kernel",
         "dbeel_tpu/ops/bitonic.py:95 (sort_stack_kernel :114)",
         lambda: B.sort_stack_kernel(stack5),
         lambda: B.merge_rows_plain(stack5[:, None]),
         None,  # no single PyTorch call sorts 8 key words lexicographically
-        stack5.numel() * 4 * 2 + n,
-        n // 2 * (levels5 * (levels5 + 1) // 2) * 8,
+        *k5_bound(n),
     )
-    del stack5
+    k5 = results[-1]
+    n_mesh = 1 << 19
+    # The shapes past the flush draw from their own generator, so that
+    # the data of every later row stays as it was.
+    rng5 = np.random.default_rng(5)
+    slots = [_k5_stack(np, rng5, 65568, 65536) for _ in range(MESH_PARTS)]
+    for slot in slots:  # each slot a sorted bucket of a sorted partition
+        slot[:] = slot[np.lexsort(slot[:, :8].T[::-1])]
+    pad = np.full((n_mesh - 65568 * MESH_PARTS, 9), 0xFFFFFFFF, np.uint32)
+    stack_mesh = T(np.concatenate(slots + [pad]))
+    if bit_err("K5", B.sort_stack_kernel(stack_mesh),
+               B.merge_rows_plain(stack_mesh[:, None])):
+        raise AssertionError("K5 (524288, 9): kernel disagrees with plain")
+    k5["mesh_final_sort"] = dict(
+        shape=[n_mesh, 9], bit_equal=True,
+        **measure(lambda: B.sort_stack_kernel(stack_mesh),
+                  lambda: B.merge_rows_plain(stack_mesh[:, None]),
+                  *k5_bound(n_mesh)),
+    )
+    log(f"K5 (524288, 9): bit_equal {_timings_text(k5['mesh_final_sort'])}")
+    # Each launch's device time in a call: the first launch, then a
+    # group and a tile launch for each level past the tile.
+    k5["passes_us"] = {
+        str(x.shape[0]): _pass_profile(torch, lambda: B.sort_stack_kernel(x))
+        for x in (stack5, stack_mesh)
+    }
+    log(f"K5 passes (kernel, device us): {json.dumps(k5['passes_us'])}")
+    k5["edge_cases"] = _k5_edges(torch, np, B, rng5, bit_err)
+    del stack5, stack_mesh
 
     # K6 (8, 4, 131072, 2): the coalesced batch of the shards phase —
     # 8 jobs of 3 ragged runs plus the empty run K = 4 pads with.

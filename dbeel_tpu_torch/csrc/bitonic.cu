@@ -31,12 +31,14 @@
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
-// integer ops each, far under the card's integer rate.  This
-// first version runs strides >= TILE/2 as one global-memory launch per
-// stage and every smaller stride of a level in one shared-memory tile
-// launch (TILE rows of W words, <= 36 KiB), so a level costs
-// (log2(2 P_l) - log2(TILE) + 2) passes over the rows.  It is not yet
-// near the bound; PERF.md keeps its times.
+// integer ops each, far under the card's integer rate.  For K1, K4, K6
+// and K7 (run_network) this first version runs strides >= TILE/2 as one
+// global-memory launch per stage and every smaller stride of a level in
+// one shared-memory tile launch (TILE rows of W words, <= 36 KiB), so a
+// level costs (log2(2 P_l) - log2(TILE) + 2) passes over the rows.  K5
+// runs the same stages in two passes a level ("K5: the same network in
+// fewer passes" below).  None is near the bound yet; PERF.md keeps their
+// times.
 //
 // Interface: plain C, launched on the caller's stream, no allocation
 // (the wrapper passes the work buffer), returns cudaGetLastError().
@@ -64,40 +66,45 @@ struct Tile<9> {
   static constexpr uint32_t rows = 1024;  // 36 KiB
 };
 
-template <int W>
-__device__ __forceinline__ void load_row(const uint32_t* base, uint64_t i,
+template <int W, typename I>
+__device__ __forceinline__ void load_row(const uint32_t* base, I i,
                                          uint32_t (&r)[W]) {
 #pragma unroll
   for (int c = 0; c < W; ++c) r[c] = base[i * W + c];
 }
 
-template <int W>
-__device__ __forceinline__ void store_row(uint32_t* base, uint64_t i,
+template <int W, typename I>
+__device__ __forceinline__ void store_row(uint32_t* base, I i,
                                           const uint32_t (&r)[W]) {
 #pragma unroll
   for (int c = 0; c < W; ++c) base[i * W + c] = r[c];
 }
 
-// a > b lexicographically over the first NCMP words (bitonic.py _lex_gt).
+// a > b lexicographically over the first NCMP words (bitonic.py _lex_gt),
+// without a branch.
 template <int W, int NCMP>
 __device__ __forceinline__ bool lex_gt(const uint32_t (&a)[W],
                                        const uint32_t (&b)[W]) {
+  bool gt = false;
 #pragma unroll
-  for (int c = 0; c < NCMP; ++c) {
-    if (a[c] != b[c]) return a[c] > b[c];
-  }
-  return false;
+  for (int c = NCMP - 1; c >= 0; --c)
+    gt = (a[c] > b[c]) | ((a[c] == b[c]) & gt);
+  return gt;
 }
 
 // Compare-exchange of rows i < j: the smaller lands at i; equal rows stay.
-template <int W, int NCMP>
-__device__ __forceinline__ void cmpx(uint32_t* rows, uint64_t i, uint64_t j) {
-  uint32_t a[W], b[W];
-  load_row<W>(rows, i, a);
-  load_row<W>(rows, j, b);
-  if (lex_gt<W, NCMP>(a, b)) {
-    store_row<W>(rows, i, b);
-    store_row<W>(rows, j, a);
+// With `turn` row j is read and written first (smem_stage); the result
+// is the same.
+template <int W, int NCMP, typename I>
+__device__ __forceinline__ void cmpx(uint32_t* rows, I i, I j,
+                                     bool turn = false) {
+  const I first = turn ? j : i, second = turn ? i : j;
+  uint32_t x[W], y[W];
+  load_row<W>(rows, first, x);
+  load_row<W>(rows, second, y);
+  if (turn ? lex_gt<W, NCMP>(y, x) : lex_gt<W, NCMP>(x, y)) {
+    store_row<W>(rows, first, y);
+    store_row<W>(rows, second, x);
   }
 }
 
@@ -106,29 +113,23 @@ __device__ __forceinline__ void cmpx(uint32_t* rows, uint64_t i, uint64_t j) {
 // Quad t (t < h/2) owns the pairs k = t and k = h-1-t: it reads the four
 // rows a[t], a[h-1-t], b[t], b[h-1-t] and writes the stage's results
 // to positions base+k (lo) and base+h+k (hi) for both k.
-template <int W, int NCMP>
-__device__ __forceinline__ void flip_quad(uint32_t* rows, uint64_t base,
-                                          uint64_t h, uint64_t t) {
+template <int W, int NCMP, typename I>
+__device__ __forceinline__ void flip_quad(uint32_t* rows, I base, I h, I t) {
   uint32_t a0[W], a1[W], b0[W], b1[W];
   load_row<W>(rows, base + t, a0);
   load_row<W>(rows, base + h - 1 - t, a1);
   load_row<W>(rows, base + h + t, b0);
   load_row<W>(rows, base + 2 * h - 1 - t, b1);
-  // pair k = t: (a[t], rb[t] = b[h-1-t] = b1)
-  if (lex_gt<W, NCMP>(a0, b1)) {
-    store_row<W>(rows, base + t, b1);
-    store_row<W>(rows, base + h + t, a0);
-  } else {
-    store_row<W>(rows, base + t, a0);
-    store_row<W>(rows, base + h + t, b1);
-  }
-  // pair k = h-1-t: (a[h-1-t] = a1, rb[h-1-t] = b[t] = b0)
-  if (lex_gt<W, NCMP>(a1, b0)) {
-    store_row<W>(rows, base + h - 1 - t, b0);
-    store_row<W>(rows, base + 2 * h - 1 - t, a1);
-  } else {
-    store_row<W>(rows, base + h - 1 - t, a1);
-    store_row<W>(rows, base + 2 * h - 1 - t, b0);
+  // pair k = t: (a[t], rb[t] = b[h-1-t] = b1); pair k = h-1-t:
+  // (a[h-1-t] = a1, rb[h-1-t] = b[t] = b0).
+  const bool s0 = lex_gt<W, NCMP>(a0, b1), s1 = lex_gt<W, NCMP>(a1, b0);
+  // Word by word: a select of whole arrays would put them in local memory.
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    rows[(base + t) * W + c] = s0 ? b1[c] : a0[c];
+    rows[(base + h + t) * W + c] = s0 ? a0[c] : b1[c];
+    rows[(base + h - 1 - t) * W + c] = s1 ? b0[c] : a1[c];
+    rows[(base + 2 * h - 1 - t) * W + c] = s1 ? a1[c] : b0[c];
   }
 }
 
@@ -149,6 +150,36 @@ __global__ void stage_kernel(uint32_t* rows, uint64_t n, uint64_t s) {
   cmpx<W, NCMP>(rows, i, i + s);
 }
 
+// One half-cleaner stage of stride s over the first n rows of shared
+// memory.  A warp's 32 pairs span 64 rows; row i's words sit in banks
+// W i + c mod 32, so for s < 32 the first rows of the pairs would meet
+// in half the banks they could use.  The lanes whose pairs lie in the
+// upper 32 rows (bit 5 of i) read and write the second row first: each
+// access then touches rows of both halves, twice the banks.
+template <int W, int NCMP>
+__device__ void smem_stage(uint32_t* sm, uint32_t n, uint32_t s) {
+  for (uint32_t q = threadIdx.x; q < n / 2; q += blockDim.x) {
+    const uint32_t i = ((q & ~(s - 1)) << 1) | (q & (s - 1));
+    cmpx<W, NCMP>(sm, i, i + s, s < 32 && (i & 32));
+  }
+  __syncthreads();
+}
+
+// A level's first stage with its reversal fused (flip_quad) over
+// segments of 2h rows of shared memory; a one-row run reverses to itself,
+// so for h = 1 the flip is a plain stage.
+template <int W, int NCMP>
+__device__ void smem_flip(uint32_t* sm, uint32_t n, uint32_t h) {
+  if (h == 1) {
+    smem_stage<W, NCMP>(sm, n, 1);
+    return;
+  }
+  const uint32_t quads = h / 2;
+  for (uint32_t q = threadIdx.x; q < n / 4; q += blockDim.x)
+    flip_quad<W, NCMP>(sm, (q / quads) * 2 * h, h, q % quads);
+  __syncthreads();
+}
+
 // Every stage of stride <= s_start on one tile of `tile` rows held in
 // shared memory (2 * s_start <= tile).  With `flip_first` the first
 // stage is the level's fused reversal at stride s_start.
@@ -161,21 +192,11 @@ __global__ void tile_kernel(uint32_t* rows, uint32_t tile, uint32_t s_start,
     sm[e] = rows[off + e];
   __syncthreads();
   uint32_t s = s_start;
-  // A one-row run reverses to itself: then the plain stage is the flip.
-  if (flip_first && s >= 2) {
-    const uint32_t quads = s / 2;
-    for (uint32_t q = threadIdx.x; q < tile / 4; q += blockDim.x)
-      flip_quad<W, NCMP>(sm, (uint64_t)(q / quads) * 2 * s, s, q % quads);
-    __syncthreads();
+  if (flip_first) {
+    smem_flip<W, NCMP>(sm, tile, s);
     s >>= 1;
   }
-  for (; s >= 1; s >>= 1) {
-    for (uint32_t q = threadIdx.x; q < tile / 2; q += blockDim.x) {
-      const uint32_t i = (q / s) * 2 * s + (q % s);
-      cmpx<W, NCMP>(sm, i, i + s);
-    }
-    __syncthreads();
-  }
+  for (; s >= 1; s >>= 1) smem_stage<W, NCMP>(sm, tile, s);
   for (uint32_t e = threadIdx.x; e < tile * W; e += blockDim.x)
     rows[off + e] = sm[e];
 }
@@ -243,24 +264,6 @@ __global__ void perm_same_kernel(const uint32_t* rows, uint64_t n,
   const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
   if (i >= n) return;
   idx[i] = rows[i * 9 + 8];
-  uint8_t s = 0;
-  if (i > 0) {
-    bool eq = true;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) eq = eq && rows[i * 9 + c] == rows[(i - 1) * 9 + c];
-    s = eq && rows[i * 9 + 4] != kSentinel;
-  }
-  same[i] = s;
-}
-
-// K5 epilogue (_merged_with_same :81-90, whole rows): perm_same_kernel
-// with all 9 words of each sorted row copied out instead of column 8.
-__global__ void rows_same_kernel(const uint32_t* rows, uint64_t n,
-                                 uint32_t* out, uint8_t* same) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-#pragma unroll
-  for (int c = 0; c < 9; ++c) out[i * 9 + c] = rows[i * 9 + c];
   uint8_t s = 0;
   if (i > 0) {
     bool eq = true;
@@ -356,6 +359,225 @@ int packed_merge(const uint32_t* operand, const uint32_t* counts, uint32_t j,
   return (int)cudaGetLastError();
 }
 
+// ---- K5: the same network in fewer passes ---------------------------------
+//
+// K5 runs run_network's stages exactly (rows of 9 words compared on 8, the
+// reversal fused into each level's first stage, a swap only on a strict
+// lex_gt, the same shared-memory stages smem_stage and smem_flip), but
+// groups them into fewer passes over the rows.  With a tile of TILE =
+// Tile<9>::rows = 1024 rows (36 KiB of shared memory; 128 blocks at the
+// flush shape of 2^17 rows, about one an SM) and N > TILE:
+//   1. one tile launch stages the operand and runs every level whose
+//      segments (2h rows) lie within a tile: h = P .. TILE/2;
+//   2. per later level, one group launch runs every stage of stride
+//      >= TILE.  A segment of 2h rows is G = 2h/TILE tiles; those stages
+//      pair rows whose indices differ only in the tile bits, except the
+//      fused reversal, which pairs row k with 2h-1-k and so also
+//      complements the offset o within the tile.  A block therefore
+//      loads a set closed under all of them: L = TILE/(2G) offsets
+//      o0..o0+L-1 and their complements TILE-1-o, in each of the
+//      segment's G tiles (2GL = TILE rows).  It places the segment's
+//      upper half reversed (JAX's concat(a, b[::-1]), _merge_level :70),
+//      so that every stage of the level, the reversal's included, is a
+//      plain half-cleaner in shared memory, and writes the rows back in
+//      place: one pass for what took 1 + log2(h/TILE) launches;
+//   3. per later level, one tile launch for the strides TILE/2 .. 1;
+//   4. the last tile launch writes the sorted rows to the output, and
+//      the same-key flags (_merged_with_same :81-90).  A tile's first
+//      row is compared with the previous tile's last row, which is the
+//      lexicographic maximum of the previous tile's rows: a tile launch
+//      only permutes rows within a tile, and this one reads the work
+//      buffer, which none of its blocks writes, so each block reduces
+//      the previous tile's rows itself and no block waits on another.
+// That is 1 + 2 log2(N/TILE) launches (15 at N = 2^17, 19 at 2^19) where
+// run_network with the staging and epilogue launches takes 47 and 66.
+// The group needs G <= TILE/2, i.e. N <= TILE^2/2 (2^19 at TILE 1024); a
+// level past that runs its stages of stride >= TILE one launch each, as
+// run_network does, so any power-of-two N stays correct.
+//
+// Bound: bytes, as for the network above.  Every pass reads and writes
+// the 36 B rows once (a tile's words, or a group's chunks of L rows, in
+// coalesced 4-byte accesses), and the stages run in shared memory, where
+// a stage moves 18 words per row pair: the shared-memory traffic of the
+// 10 stages of a tile (55 in the first launch) is what the passes wait
+// on, next to the launches themselves (PERF.md §6 has each pass's time).
+
+constexpr uint32_t kRowW = 9;  // K5 rows: words 0-7 compared, 8 carried
+
+// Copies the block's tile * 9 words, word e from load(e) to store(e, v),
+// nine loads in flight a thread (one block an SM holds too few warps to
+// hide one load at a time); tile a multiple of blockDim.x.
+template <typename Load, typename Store>
+__device__ __forceinline__ void k5_copy(uint32_t tile, Load load,
+                                        Store store) {
+  for (uint32_t e0 = threadIdx.x; e0 < tile * kRowW;
+       e0 += kRowW * blockDim.x) {
+    uint32_t v[kRowW];
+#pragma unroll
+    for (uint32_t u = 0; u < kRowW; ++u) v[u] = load(e0 + u * blockDim.x);
+#pragma unroll
+    for (uint32_t u = 0; u < kRowW; ++u) store(e0 + u * blockDim.x, v[u]);
+  }
+}
+
+// Words 0-4 of the lexicographically largest of `rows` rows at `src`,
+// into `out` (shared) for every thread; blockDim a multiple of 32.
+__device__ void k5_max5(const uint32_t* src, uint32_t rows, uint32_t* out) {
+  __shared__ uint32_t part[32][5];
+  uint32_t m[5] = {0, 0, 0, 0, 0};
+  for (uint32_t i = threadIdx.x; i < rows; i += blockDim.x) {
+    uint32_t r[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) r[c] = src[(uint64_t)i * kRowW + c];
+    if (lex_gt<5, 5>(r, m)) {
+#pragma unroll
+      for (int c = 0; c < 5; ++c) m[c] = r[c];
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    uint32_t y[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) y[c] = __shfl_down_sync(0xffffffffu, m[c], o);
+    if (lex_gt<5, 5>(y, m)) {
+#pragma unroll
+      for (int c = 0; c < 5; ++c) m[c] = y[c];
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) part[threadIdx.x >> 5][c] = m[c];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t best = 0;
+    for (uint32_t w = 1; w < blockDim.x / 32; ++w)
+      if (lex_gt<5, 5>(part[w], part[best])) best = w;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) out[c] = part[best][c];
+  }
+  __syncthreads();
+}
+
+// One tile of `tile` rows per block, rows [b*tile, (b+1)*tile) of src:
+// the strides s_start..1 of a level whose larger strides ran already
+// (s_start = 0: none), then every level h = h_first, 2*h_first, ... with
+// 2h <= tile, then the tile to dst.  With `same` (the last pass: dst is
+// the output, src the work buffer or the operand, never dst), the
+// same-key flags too.  src may equal dst otherwise.
+__global__ void __launch_bounds__(512, 2)
+    k5_tile_kernel(const uint32_t* src, uint32_t* dst, uint32_t tile,
+                   uint32_t s_start, uint32_t h_first, uint8_t* same) {
+  extern __shared__ uint32_t sm[];
+  __shared__ uint32_t prev[5];
+  const uint64_t off = (uint64_t)blockIdx.x * tile * kRowW;
+  if (same && blockIdx.x > 0) k5_max5(src + off - tile * kRowW, tile, prev);
+  k5_copy(
+      tile, [&](uint32_t e) { return src[off + e]; },
+      [&](uint32_t e, uint32_t v) { sm[e] = v; });
+  __syncthreads();
+  for (uint32_t s = s_start; s >= 1; s >>= 1) smem_stage<9, 8>(sm, tile, s);
+  for (uint32_t h = h_first; 2 * h <= tile; h <<= 1) {
+    smem_flip<9, 8>(sm, tile, h);
+    for (uint32_t s = h / 2; s >= 1; s >>= 1)
+      smem_stage<9, 8>(sm, tile, s);
+  }
+  if (same) {
+    for (uint32_t i = threadIdx.x; i < tile; i += blockDim.x) {
+      const uint32_t* r = sm + i * kRowW;
+      uint8_t flag = 0;
+      if (i > 0 || blockIdx.x > 0) {
+        const uint32_t* q = i > 0 ? r - kRowW : prev;
+        bool eq = true;
+#pragma unroll
+        for (int c = 0; c < 5; ++c) eq = eq && r[c] == q[c];
+        flag = eq && r[4] != kSentinel;
+      }
+      same[(uint64_t)blockIdx.x * tile + i] = flag;
+    }
+  }
+  k5_copy(
+      tile, [&](uint32_t e) { return sm[e]; },
+      [&](uint32_t e, uint32_t v) { dst[off + e] = v; });
+}
+
+// Every stage of stride >= tile of one level, in place on `rows`:
+// segments of g tiles (2 <= g <= tile/2); block = (segment, offset block),
+// holding l = 2^log_l = tile/(2g) offsets o0.. and their complements in
+// each of the segment's tiles — chunk c = 2t + side of l rows, side 1 the
+// complements — reversed on load in the segment's upper half.
+__global__ void __launch_bounds__(512, 2)
+    k5_group_kernel(uint32_t* rows, uint32_t tile, uint32_t g,
+                    uint32_t log_l) {
+  extern __shared__ uint32_t sm[];
+  const uint32_t l = 1u << log_l;
+  const uint64_t seg_base = (uint64_t)(blockIdx.x / g) * g * tile;
+  const uint32_t o0 = (blockIdx.x % g) * l;
+  // Local row r (chunk r >> log_l, row j of it) -> its row in `rows`.
+  auto global_row = [&](uint32_t r) -> uint64_t {
+    const uint32_t c = r >> log_l, j = r & (l - 1);
+    return seg_base + (uint64_t)(c >> 1) * tile +
+           ((c & 1) ? tile - o0 - l + j : o0 + j);
+  };
+  // Word e of local row r = e / 9: its word in `rows`.
+  auto global_word = [&](uint32_t e) -> uint64_t {
+    const uint32_t r = e / kRowW;
+    return global_row(r) * kRowW + (e - r * kRowW);
+  };
+  // Upper half: tile t -> 3g/2-1-t, offset o -> tile-1-o (the other
+  // side, row l-1-j of its chunk).
+  auto slot_word = [&](uint32_t e) -> uint32_t {
+    const uint32_t r = e / kRowW, c = r >> log_l, t = c >> 1;
+    const uint32_t slot =
+        t < g / 2 ? r
+                  : (((3 * g / 2 - 1 - t) << 1 | (~c & 1)) << log_l) |
+                        (l - 1 - (r & (l - 1)));
+    return slot * kRowW + (e - r * kRowW);
+  };
+  k5_copy(
+      tile, [&](uint32_t e) { return rows[global_word(e)]; },
+      [&](uint32_t e, uint32_t v) { sm[slot_word(e)] = v; });
+  __syncthreads();
+  for (uint32_t s = tile / 2; s >= 2 * l; s >>= 1)
+    smem_stage<9, 8>(sm, tile, s);
+  k5_copy(
+      tile, [&](uint32_t e) { return sm[e]; },
+      [&](uint32_t e, uint32_t v) { rows[global_word(e)] = v; });
+}
+
+int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
+                  uint32_t* work, uint32_t* out, uint8_t* same,
+                  cudaStream_t st) {
+  const uint32_t tile = (uint32_t)(n < Tile<9>::rows ? n : Tile<9>::rows);
+  const unsigned blocks = (unsigned)(n / tile);
+  const unsigned threads = tile < 2 ? 1 : tile / 2;
+  const size_t smem = (size_t)tile * kRowW * sizeof(uint32_t);
+  uint64_t h = p;  // the first level past the first launch's tiles
+  while (2 * h <= tile) h <<= 1;
+  bool last = h >= n;
+  k5_tile_kernel<<<blocks, threads, smem, st>>>(
+      stacks, last ? out : work, tile, 0, (uint32_t)(p < tile ? p : tile),
+      last ? same : nullptr);
+  for (; h < n; h <<= 1) {
+    const uint64_t g = 2 * h / tile;
+    if (g <= tile / 2) {
+      k5_group_kernel<<<blocks, threads, smem, st>>>(
+          work, tile, (uint32_t)g, log2_exact(tile / (2 * g)));
+    } else {
+      flip_stage_kernel<9, 8><<<blocks_for(n / 4), kThreads, 0, st>>>(
+          work, n, h);
+      for (uint64_t s = h >> 1; s >= tile; s >>= 1)
+        stage_kernel<9, 8><<<blocks_for(n / 2), kThreads, 0, st>>>(work, n,
+                                                                    s);
+    }
+    last = 2 * h == n;
+    k5_tile_kernel<<<blocks, threads, smem, st>>>(
+        work, last ? out : work, tile, tile / 2, tile, last ? same : nullptr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -410,20 +632,15 @@ int dbeel_bitonic_perm(const uint32_t* stacks, uint32_t k, uint32_t p,
 
 // K5: stacks (K,P,9) u32 -> out (K*P, 9) u32, the whole sorted stack, +
 // same (K*P,) bytes 0/1; work holds K*P*9 u32.  The flush sort
-// (sort_stack_kernel) is K = N rows, P = 1.  Bound: bytes (the stack read
-// once, the sorted stack and the flags written once).  Counted as "K5" by
-// ops/bitonic.py merge_runs_kernel.
+// (sort_stack_kernel) is K = N rows, P = 1.  See "K5: the same network
+// in fewer passes".  Bound: bytes (the stack read once, the sorted stack
+// and the flags written once).  Counted as "K5" by ops/bitonic.py
+// merge_runs_kernel.
 int dbeel_bitonic_merge_rows(const uint32_t* stacks, uint32_t k, uint32_t p,
                              uint32_t* work, uint32_t* out, uint8_t* same,
                              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint64_t n = (uint64_t)k * p;
-  stage_rows_kernel<9><<<blocks_for(n), kThreads, 0, st>>>(
-      stacks, 9, nullptr, log2_exact(k), log2_exact(p), n, work);
-  cudaError_t err = run_network<9, 8>(work, n, k, p, st);
-  if (err != cudaSuccess) return (int)err;
-  rows_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, out, same);
-  return (int)cudaGetLastError();
+  return k5_merge_rows(stacks, (uint64_t)k * p, p, work, out, same,
+                       (cudaStream_t)stream);
 }
 
 // K7: cols (9, N) u32 — nine operand columns, N a power of two >= 8 —

@@ -12,7 +12,7 @@
 // so a launch (a few us) is of the same order, and on the host side the
 // wrapper's own cost (ops/query_kernels.py) is larger than either.
 //
-// K8a and K8c take four rows per thread: the values through two 16 B
+// K8a, K8c and K8d take four rows per thread: the values through two 16 B
 // (double2) loads, the validity or mask through one 4 B load, K8a's mask
 // through one 4 B store — the widest access each operand allows, with
 // neighbouring threads on neighbouring 16 B.  The grid is ceil(n / 1024)
@@ -20,10 +20,10 @@
 // loop for the filter.  The vector path needs the values on a 16 B
 // boundary and the byte operands on 4 B; a view that starts elsewhere
 // (vals[1:]) takes the scalar path (one row per load) with the same
-// results.  K8b and K8d keep their first design: one row per thread in a
-// grid-stride loop, and K8d's fixed-shape second launch.
+// results.  K8b keeps its first design: one row per thread in a
+// grid-stride loop.
 //
-// K8c is one launch.  Each block sums a contiguous chunk of rows whose
+// K8c and K8d are one launch each.  Each block sums a contiguous chunk of rows whose
 // bounds depend on n alone (a multiple of 1024 rows, at most kMaxBlocks
 // chunks); the mask is applied with a select (m ? v : 0.0), not a
 // branch, so every load is unconditional.  A block writes its partial,
@@ -35,7 +35,8 @@
 // order; then fixed warp and block trees; then the partials in a fixed
 // tree) is a function of n alone, so every call gives the same bits
 // whichever block finishes last, and the scalar path adds in the same
-// order as the vector path.
+// order as the vector path.  K8d is the same launch with (min, max)
+// pairs for partials, in a scratch of its own.
 //
 // Semantics, as numpy gives them:
 //   * comparisons are IEEE (no fast-math): NaN != x is true, every other
@@ -51,15 +52,14 @@
 // Every entry enqueues on ``stream`` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;  // K8d pass-1 blocks; K8c partials
+constexpr int kMaxBlocks = 1024;  // K8c/K8d partials
 constexpr int64_t kGridCap = 132 * 32;
-// K8a/K8c: four rows per thread, 1024 rows per block.
+// K8a/K8c/K8d: four rows per thread, 1024 rows per block.
 constexpr int kRows = 4;
 constexpr int64_t kBlockRows = (int64_t)kThreads * kRows;
 
@@ -139,14 +139,6 @@ __global__ void range_kernel(const double* __restrict__ vals,
 int grid_for(int64_t n) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   return (int)(blocks < kGridCap ? blocks : kGridCap);
-}
-
-// Pass-1 block count of a reduction over n rows: a function of n alone,
-// so the summation order (and the result) is fixed for a given n.
-int partial_blocks(int64_t n) {
-  int64_t blocks = (n + kThreads * 4 - 1) / (kThreads * 4);
-  if (blocks < 1) blocks = 1;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
 // ---- sum --------------------------------------------------------------
@@ -253,79 +245,130 @@ int64_t sum_chunk(int64_t n) {
 
 // ---- min / max ----------------------------------------------------------
 
-// NaN is the one value unequal to itself; the sign bit is the top bit.
-__device__ __forceinline__ bool is_nan(double a) { return a != a; }
-__device__ __forceinline__ bool sign_set(double a) {
-  return __double_as_longlong(a) < 0;
+// K8d's order: a double's bits as an int64 that orders like the value,
+// -0.0 just below +0.0 (sign and magnitude to two's complement); the map
+// is its own inverse.  A NaN's key lies past the infinities': above
+// order_key(+inf) for a NaN with the sign bit clear, below
+// order_key(-inf) for one with it set.
+__device__ __forceinline__ long long order_key(long long b) {
+  return b ^ ((b >> 63) & 0x7fffffffffffffffll);
 }
 
-__device__ __forceinline__ double min_nan(double a, double b) {
-  if (is_nan(a)) return a;
-  if (is_nan(b)) return b;
-  if (a == b) return sign_set(a) ? a : b;  // -0.0 below +0.0
-  return a < b ? a : b;
-}
+constexpr long long kInfKey = 0x7ff0000000000000ll;  // order_key(+inf)
+constexpr long long kNegInfKey =
+    (long long)0x800fffffffffffffull;  // order_key(-inf)
 
-__device__ __forceinline__ double max_nan(double a, double b) {
-  if (is_nan(a)) return a;
-  if (is_nan(b)) return b;
-  if (a == b) return sign_set(a) ? b : a;  // +0.0 above -0.0
-  return a > b ? a : b;
-}
-
-// The block's (min, max), in thread 0.
-__device__ void block_min_max(double& mn, double& mx) {
-  __shared__ double part_mn[32], part_mx[32];
+// The block's (lo, hi), in thread 0.
+__device__ void block_min_max_keys(long long& lo, long long& hi) {
+  __shared__ long long part_lo[32], part_hi[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) {
-    mn = min_nan(mn, __shfl_down_sync(0xffffffffu, mn, o));
-    mx = max_nan(mx, __shfl_down_sync(0xffffffffu, mx, o));
+    lo = min(lo, __shfl_down_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_down_sync(0xffffffffu, hi, o));
   }
   if (lane == 0) {
-    part_mn[warp] = mn;
-    part_mx[warp] = mx;
+    part_lo[warp] = lo;
+    part_hi[warp] = hi;
   }
   __syncthreads();
   if (warp == 0) {
     const bool live = lane < (int)(blockDim.x >> 5);
-    mn = live ? part_mn[lane] : CUDART_INF;
-    mx = live ? part_mx[lane] : -CUDART_INF;
+    lo = live ? part_lo[lane] : kInfKey;
+    hi = live ? part_hi[lane] : kNegInfKey;
     for (int o = 16; o > 0; o >>= 1) {
-      mn = min_nan(mn, __shfl_down_sync(0xffffffffu, mn, o));
-      mx = max_nan(mx, __shfl_down_sync(0xffffffffu, mx, o));
+      lo = min(lo, __shfl_down_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_down_sync(0xffffffffu, hi, o));
     }
   }
 }
 
-__global__ void min_max_partials(const double* __restrict__ vals,
-                                 const uint8_t* __restrict__ mask, int64_t n,
-                                 double* __restrict__ partials) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  double mn = CUDART_INF, mx = -CUDART_INF;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (mask[i]) {
-      const double v = vals[i];
-      mn = min_nan(mn, v);
-      mx = max_nan(mx, v);
+// Rows per K8d block: four of K8c's chunks (16 rows a thread), still a
+// function of n alone and at most kMaxBlocks blocks.
+int64_t min_max_chunk(int64_t n) { return 4 * sum_chunk(n); }
+
+// K8d: one launch, K8c's pattern.  Block b reduces rows [b * chunk,
+// min((b + 1) * chunk, n)) four at a time (VEC: 16 B value loads and a
+// 4 B mask load; else one load per row); the block's (lo, hi) goes to
+// partials[2b], [2b + 1]; the block that takes the last ticket reduces
+// the partials and resets the ticket.  partials holds 2 * kMaxBlocks
+// 64-bit words, then the 32-bit ticket (zero between launches).
+//
+// Integer work, no branch: a masked-in row enters the min (lo) and the
+// max (hi) of order_key, a masked-out row enters as +inf / -inf.  A
+// masked-in NaN shows as hi above order_key(+inf) or lo below
+// order_key(-inf); then both results are that NaN (hi's when both
+// show) — numpy's and XLA's propagation.  Else the results are lo and
+// hi mapped back, -0.0 ordered below +0.0.  Integer min and max are
+// exact and commutative, so the bits do not depend on which block
+// finishes last.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    min_max_kernel(const double* __restrict__ vals,
+                   const uint8_t* __restrict__ mask, int64_t n, int64_t chunk,
+                   long long* partials, double* __restrict__ out) {
+  const int64_t begin = (int64_t)blockIdx.x * chunk;
+  const int64_t end = begin + chunk < n ? begin + chunk : n;
+  long long lo = kInfKey, hi = kNegInfKey;
+  for (int64_t row = begin + (int64_t)threadIdx.x * kRows; row < end;
+       row += kBlockRows) {
+    long long v[kRows];
+    uint32_t m;
+    if (VEC && row + kRows <= end) {
+      const longlong2* p = reinterpret_cast<const longlong2*>(vals + row);
+      const longlong2 a = __ldg(p);
+      const longlong2 b = __ldg(p + 1);
+      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+      m = __ldg(reinterpret_cast<const unsigned int*>(mask + row));
+    } else {
+      const int64_t left = end - row;
+      const long long* bits = reinterpret_cast<const long long*>(vals);
+      m = 0;
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        v[k] = k < left ? bits[row + k] : 0;
+        m |= k < left ? (uint32_t)mask[row + k] << (8 * k) : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const bool in = (m >> (8 * k)) & 0xffu;
+      const long long key = order_key(v[k]);
+      lo = min(lo, in ? key : kInfKey);
+      hi = max(hi, in ? key : kNegInfKey);
     }
   }
-  block_min_max(mn, mx);
-  if (threadIdx.x == 0) {
-    partials[2 * blockIdx.x] = mn;
-    partials[2 * blockIdx.x + 1] = mx;
-  }
-}
+  block_min_max_keys(lo, hi);
 
-__global__ void min_max_final(const double* __restrict__ partials, int count,
-                              double* __restrict__ out) {
-  const bool live = (int)threadIdx.x < count;
-  double mn = live ? partials[2 * threadIdx.x] : CUDART_INF;
-  double mx = live ? partials[2 * threadIdx.x + 1] : -CUDART_INF;
-  block_min_max(mn, mx);
+  __shared__ bool last;
+  unsigned int* ticket =
+      reinterpret_cast<unsigned int*>(partials + 2 * kMaxBlocks);
   if (threadIdx.x == 0) {
-    out[0] = mn;
-    out[1] = mx;
+    partials[2 * blockIdx.x] = lo;
+    partials[2 * blockIdx.x + 1] = hi;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The last block: every partial is written and fenced; each thread
+  // folds its (at most four), read past L1, then the block tree.
+  constexpr int kPer = kMaxBlocks / kThreads;
+  lo = kInfKey, hi = kNegInfKey;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < (int)gridDim.x) {
+      lo = min(lo, __ldcg(partials + 2 * i));
+      hi = max(hi, __ldcg(partials + 2 * i + 1));
+    }
+  }
+  block_min_max_keys(lo, hi);
+  if (threadIdx.x == 0) {
+    const bool nan = hi > kInfKey || lo < kNegInfKey;
+    const long long nan_key = hi > kInfKey ? hi : lo;
+    out[0] = __longlong_as_double(order_key(nan ? nan_key : lo));
+    out[1] = __longlong_as_double(order_key(nan ? nan_key : hi));
+    *ticket = 0u;
   }
 }
 
@@ -333,13 +376,13 @@ __global__ void min_max_final(const double* __restrict__ partials, int count,
 
 extern "C" {
 
-// Pass-1 partial count of a reduction over n rows (the wrapper sizes its
-// scratch with it: one double per partial for the sum, two for min/max).
-int dbeel_query_partials(int64_t n) { return partial_blocks(n); }
-
 // Doubles of K8c's scratch: kMaxBlocks partials, then the ticket.  The
 // wrapper allocates it zeroed, once per (card, stream).
 int dbeel_query_sum_scratch() { return kMaxBlocks + 1; }
+
+// 8-byte words of K8d's scratch: kMaxBlocks (lo, hi) pairs, then the
+// ticket; allocated like K8c's.
+int dbeel_query_min_max_scratch() { return 2 * kMaxBlocks + 1; }
 
 int dbeel_query_cmp_f64(const double* vals, const uint8_t* valid, int64_t n,
                         double operand, int op, uint8_t* out,
@@ -399,14 +442,21 @@ int dbeel_query_sum_f64(const double* vals, const uint8_t* mask, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// ``scratch``: dbeel_query_min_max_scratch() 8-byte words, zeroed before
+// the first launch on ``stream`` and left so by every launch.
 int dbeel_query_min_max_f64(const double* vals, const uint8_t* mask,
-                            int64_t n, double* partials, double* out,
+                            int64_t n, long long* scratch, double* out,
                             cudaStream_t stream) {
-  const int blocks = partial_blocks(n);
-  min_max_partials<<<blocks, kThreads, 0, stream>>>(vals, mask, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  min_max_final<<<1, kMaxBlocks, 0, stream>>>(partials, blocks, out);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  const int64_t chunk = min_max_chunk(n);
+  const unsigned blocks = n == 0 ? 1u : (unsigned)ceil_div(n, chunk);
+  if ((uintptr_t)vals % 16 == 0 && (uintptr_t)mask % 4 == 0) {
+    min_max_kernel<true><<<blocks, kThreads, 0, stream>>>(vals, mask, n, chunk,
+                                                          scratch, out);
+  } else {
+    min_max_kernel<false><<<blocks, kThreads, 0, stream>>>(vals, mask, n,
+                                                           chunk, scratch, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -182,10 +182,12 @@ def _bind_query(handle: ctypes.CDLL) -> None:
     ]
     handle.dbeel_query_sum_f64.argtypes = [vp, vp, i64, vp, vp, vp]
     handle.dbeel_query_min_max_f64.argtypes = [vp, vp, i64, vp, vp, vp]
-    handle.dbeel_query_partials.argtypes = [i64]
-    handle.dbeel_query_partials.restype = ctypes.c_int
-    handle.dbeel_query_sum_scratch.argtypes = []
-    handle.dbeel_query_sum_scratch.restype = ctypes.c_int
+    for fn in (
+        handle.dbeel_query_sum_scratch,
+        handle.dbeel_query_min_max_scratch,
+    ):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     for fn in (
         handle.dbeel_query_cmp_f64,
         handle.dbeel_query_range_f64,

@@ -7,7 +7,8 @@ bitonic sequence) and sorting the pair with half-cleaner stages of
 strides P_l, P_l/2, ..., 1.  ``dbeel_tpu/ops/bitonic.py`` runs it as
 jax.jit programs on a TPU; here the six networks on the storage path
 are CUDA kernels written for Hopper — K1 and K4-K6 the network stage
-for stage (``csrc/bitonic.cu``), K2 and K3 a merge-path merge
+for stage (``csrc/bitonic.cu``; K5 with its stages grouped into two
+passes a level), K2 and K3 a merge-path merge
 (``csrc/merge_path.cu``), which may compare rows in another order
 because every word of their rows is compared (the source's note):
 
@@ -412,10 +413,13 @@ def merge_runs_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5 — replaces dbeel_tpu/ops/bitonic.py:95 merge_runs_kernel:
     K4's network on the 9-column stack, returning the whole sorted
-    stack (K*P, 9) and the same-key flags (K*P,) bool.  Bound (bytes):
-    the stack read once, the sorted stack and the flags written once —
-    at the flush shape (131072, 1, 9) 4.5 MiB + 4.6 MiB, about 2.8 µs
-    at 3.35 TB/s."""
+    stack (K*P, 9) and the same-key flags (K*P,) bool.  On the card the
+    same stages run in fewer passes (csrc/bitonic.cu, "K5: the same
+    network in fewer passes"): with tiles of 1024 rows in shared memory,
+    1 + 2 log2(K*P / 1024) launches.  Bound (bytes): the stack
+    read once, the sorted stack and the flags written once — at the
+    flush shape (131072, 1, 9) 4.5 MiB + 4.6 MiB, about 2.8 µs at
+    3.35 TB/s."""
     k, p, _ = stacks.shape
     _check_runs(k, p)
     _check("stacks", stacks, (k, p, NUM_COLS))

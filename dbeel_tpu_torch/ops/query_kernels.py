@@ -21,11 +21,11 @@ validity read per row, 1 B of mask written (the filters) — at a 1M-row
 stage about 3 µs at 3.35 TB/s, the order of one launch.  So each is
 one pass.  K8a and K8c take four rows per thread (16 B value loads,
 4 B mask loads and stores; a scalar path for views off that
-alignment), and K8c is one launch: each block's partial, then the last
-block to take a ticket sums the partials in index order (a sum whose
-order, and so whose bits, depend on n alone).  K8b and K8d keep one
-row per thread, K8d a fixed-shape second launch.  ``csrc/query.cu``
-describes the kernels.
+alignment), and K8c and K8d are one launch each: each block's partial,
+then the last block to take a ticket reduces the partials in index
+order (a reduction whose order, and so whose bits, depend on n alone).
+K8b keeps one row per thread.  K8d takes four rows per thread as K8c
+does.  ``csrc/query.cu`` describes the kernels.
 
 What bounds a call is mostly the host: at these sizes the device work
 is a few µs, less than the Python around a ctypes launch costs.  So
@@ -35,9 +35,9 @@ and later calls find them without a lock; each call makes its operand
 checks in one
 pass (``_check``), allocates its output, reads the launching thread's
 current stream as a raw handle (no ``torch.cuda.Stream`` object), makes
-one ctypes call and counts the launch.  K8c's scratch (partials and
-ticket) is allocated zeroed once per (card, stream) and reused, so two
-threads launching on two streams never share a ticket.
+one ctypes call and counts the launch.  K8c's and K8d's scratch
+(partials and ticket) is allocated zeroed once per (card, stream) and
+reused, so two threads launching on two streams never share a ticket.
 
 Exactness: the mask is bit-equal to numpy's float64 comparison (IEEE:
 NaN != x is true, every other comparison with NaN false, -0.0 == 0.0);
@@ -110,16 +110,16 @@ class _Bound:
     """The library's entries and the torch handles a launch needs,
     resolved once (``_bind``)."""
 
-    __slots__ = ("cmp", "range", "sum", "min_max", "partials",
-                 "sum_scratch", "stream", "current")
+    __slots__ = ("cmp", "range", "sum", "min_max", "sum_scratch",
+                 "min_max_scratch", "stream", "current")
 
     def __init__(self, handle):
         self.cmp = handle.dbeel_query_cmp_f64
         self.range = handle.dbeel_query_range_f64
         self.sum = handle.dbeel_query_sum_f64
         self.min_max = handle.dbeel_query_min_max_f64
-        self.partials = handle.dbeel_query_partials
         self.sum_scratch = handle.dbeel_query_sum_scratch()
+        self.min_max_scratch = handle.dbeel_query_min_max_scratch()
         # The launching thread's current stream on card i as a raw
         # handle (no torch.cuda.Stream object), and its current card:
         # always 0 where only one card is visible.
@@ -131,9 +131,22 @@ class _Bound:
 
 
 _bound: Optional[_Bound] = None
-# K8c's scratch by (card, stream handle): partials and a ticket, zeroed
-# once; the kernel leaves the ticket at zero.
+# K8c's and K8d's scratch by (card, stream handle): partials and a
+# ticket, zeroed once; the kernel leaves the ticket at zero.
 _sum_scratch: dict = {}
+_min_max_scratch: dict = {}
+
+
+def _scratch(store: dict, idx: int, stream: int, doubles: int,
+             device) -> torch.Tensor:
+    """The scratch of (card, stream) in ``store``, allocated and zeroed
+    on that stream before its first launch."""
+    scratch = store.get((idx, stream))
+    if scratch is None:
+        scratch = store.setdefault(
+            (idx, stream), torch.zeros(doubles, dtype=_F64, device=device)
+        )
+    return scratch
 
 
 def _bind() -> _Bound:
@@ -259,13 +272,7 @@ def sum_f64(vals, mask) -> torch.Tensor:
         with torch.cuda.device(idx):
             return sum_f64(vals, mask)
     stream = b.stream(idx)
-    scratch = _sum_scratch.get((idx, stream))
-    if scratch is None:
-        # Allocated and zeroed on this stream, before its first launch.
-        scratch = _sum_scratch.setdefault(
-            (idx, stream),
-            torch.zeros(b.sum_scratch, dtype=_F64, device=vals.device),
-        )
+    scratch = _scratch(_sum_scratch, idx, stream, b.sum_scratch, vals.device)
     out = torch.empty((), dtype=_F64, device=vals.device)
     rc = b.sum(
         vals.data_ptr(), mask.data_ptr(), vals.numel(), scratch.data_ptr(),
@@ -278,8 +285,12 @@ def sum_f64(vals, mask) -> torch.Tensor:
 
 def min_max_f64(vals, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8d — replaces dbeel_tpu/ops/query_kernels.py:183 min_max_f64:
-    two 0-d float64 tensors (+inf / -inf for an empty mask).  Bound
-    (bytes): 9 B read per row."""
+    two 0-d float64 tensors (+inf / -inf for an empty mask), one launch
+    whose bits depend on the inputs alone.  A masked-in NaN makes both
+    results NaN; where the masked-in NaNs differ in their bits, which
+    NaN comes back is not specified (the kernel returns one of them, and
+    ``min_max_f64_plain`` what ``amin``/``amax`` give).  Bound (bytes):
+    9 B read per row."""
     idx = _check(vals, mask)
     if idx < 0:
         return min_max_f64_plain(vals, mask)
@@ -287,14 +298,14 @@ def min_max_f64(vals, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     if b.current() != idx:
         with torch.cuda.device(idx):
             return min_max_f64(vals, mask)
-    n = vals.numel()
-    partials = torch.empty(
-        2 * b.partials(n), dtype=_F64, device=vals.device
+    stream = b.stream(idx)
+    scratch = _scratch(
+        _min_max_scratch, idx, stream, b.min_max_scratch, vals.device
     )
     out = torch.empty(2, dtype=_F64, device=vals.device)
     rc = b.min_max(
-        vals.data_ptr(), mask.data_ptr(), n, partials.data_ptr(),
-        out.data_ptr(), b.stream(idx),
+        vals.data_ptr(), mask.data_ptr(), vals.numel(), scratch.data_ptr(),
+        out.data_ptr(), stream,
     )
     _cuda.check(rc, "min_max_f64")
     _cuda.count("K8d")

@@ -176,6 +176,108 @@ def test_min_max_f64_empty_column():
     assert (mn.item(), mx.item()) == (math.inf, -math.inf)
 
 
+# Lengths just past a K8d chunk boundary: on the card a block reduces
+# 4096 rows up to 2^20 rows and 8192 past it (csrc/query.cu
+# min_max_chunk); 1025 is past a K8c chunk.
+K8D_LENGTHS = (1025, 4097, 8193, 3 * 4096 + 5, (1 << 20) + 1,
+               (1 << 20) + 8193)
+K8D_CASES = (
+    ["two_nans", "one_of_two_nans", "no_nan_masked_in"]
+    + [f"{first}{only}" for first in ("neg_zero_first", "pos_zero_first")
+       for only in ("", "_zeros_only")]
+    + [f"past_boundary_{n}{tail}" for n in K8D_LENGTHS
+       for tail in ("", "_tail_only")]
+)
+
+
+def _k8d_cases():
+    """K8d's edge columns as (name, vals, mask): two NaNs in one column,
+    in two chunks; -0.0 and 0.0 in different chunks, in both orders;
+    lengths just past a chunk boundary, with the extremes in the last,
+    short chunk."""
+    vals, valid = _column(1100, 9000)
+    vals[np.isnan(vals)] = 0.5
+    two = vals.copy()
+    two[[10, 5000]] = float("nan")
+    one_in = valid.copy()
+    one_in[[10, 5000]] = [True, False]
+    yield "two_nans", two, valid | np.isin(np.arange(9000), [10, 5000])
+    yield "one_of_two_nans", two, one_in
+    yield "no_nan_masked_in", two, one_in & ~np.isnan(two)
+    for name, neg, pos in (("neg_zero_first", 5, 8500),
+                           ("pos_zero_first", 8500, 5)):
+        z = np.full(9000, 7.0)
+        z[neg], z[pos] = -0.0, 0.0
+        yield name, z, np.ones(9000, bool)
+        yield name + "_zeros_only", z, z == 0
+    for n in K8D_LENGTHS:
+        v, m = _column(1200 + n, n)
+        v[np.isnan(v)] = 0.5
+        v[-1], m[-1] = -1e300, True
+        v[-2], m[-2] = 1e300, True
+        yield f"past_boundary_{n}", v, m
+        yield f"past_boundary_{n}_tail_only", v, np.arange(n) >= n - 2
+
+
+def _k8d_case(name):
+    return next((v, m) for n, v, m in _k8d_cases() if n == name)
+
+
+@pytest.mark.parametrize("name", K8D_CASES)
+def test_min_max_f64_k8d_edges_equal_reference(name):
+    vals, mask = _k8d_case(name)
+    got = tqk.min_max_f64(_t(vals), _t(mask))
+    sel = vals[mask]
+    if np.isnan(sel).any():
+        host = (math.nan, math.nan)
+    else:
+        host = [sel.min(), sel.max()]
+        zeros = sel[sel == 0]
+        if host[0] == 0:
+            host[0] = -0.0 if np.signbit(zeros).any() else 0.0
+        if host[1] == 0:
+            host[1] = 0.0 if (~np.signbit(zeros)).any() else -0.0
+    # The extremes here are not subnormal: XLA's flush changes nothing.
+    want = _jax("min_max", vals, mask)
+    for g, h, w in zip(got, host, want):
+        assert _bits(g.item()) == _bits(h) == _bits(w), (name, g.item(), h, w)
+
+
+# NaNs of different bits (quiet and signalling payloads, the sign bit
+# set), each case as {row: bits} over a 9000-row column with the NaN rows
+# masked in, and one case where they are masked out.
+K8D_NAN_PAYLOADS = {
+    "one_chunk": {10: 0x7FF8000000000001, 20: 0x7FF0000000000ABC},
+    "two_chunks": {10: 0x7FF8000000000001, 5000: 0x7FFFFFFFFFFFFFFF},
+    "signs_differ": {10: 0xFFF8000000000123, 5000: 0x7FF8000000000002},
+    "sign_set_only": {10: 0xFFF8000000000123, 8999: 0xFFF0000000000001},
+    "masked_out": {10: 0x7FF8000000000001, 5000: 0xFFF8000000000123},
+}
+
+
+def _k8d_nan_case(name):
+    vals, valid = _column(1500, 9000)
+    vals[np.isnan(vals)] = 0.5
+    rows = list(K8D_NAN_PAYLOADS[name])
+    vals.view(np.uint64)[rows] = list(K8D_NAN_PAYLOADS[name].values())
+    valid[rows] = name != "masked_out"
+    return vals, valid
+
+
+@pytest.mark.parametrize("name", sorted(K8D_NAN_PAYLOADS))
+def test_min_max_f64_nan_payloads(name):
+    """Masked-in NaNs of different bits make both results NaN (their
+    bits are not specified); masked out, they change no bit."""
+    vals, mask = _k8d_nan_case(name)
+    got = [x.item() for x in tqk.min_max_f64(_t(vals), _t(mask))]
+    want = _jax("min_max", vals, mask)
+    if name == "masked_out":
+        for g, w in zip(got, want):
+            assert _bits(g) == _bits(w), (name, g, w)
+    else:
+        assert np.isnan(got).all() and np.isnan(want).all(), (got, want)
+
+
 @pytest.mark.parametrize("n", [1, 4096, 20000])
 def test_sum_f64_within_bound(n):
     vals, valid = _column(300 + n, n)
@@ -450,6 +552,96 @@ def test_cuda_k8c_bit_identical_repeated_and_on_two_streams(cuda_device):
     # Each stream had a scratch (and a ticket) of its own.
     keys = {(cuda_device.index or 0, s.cuda_stream) for s in streams}
     assert keys <= set(tqk._sum_scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0] + ODD_LENGTHS)
+def test_cuda_k8d_odd_lengths_and_misaligned_views(cuda_device, n):
+    """One launch at every length and alignment: bit-equal to the plain
+    version (NaN, -0.0 and an empty mask included) and to the view's
+    aligned copy."""
+    vals, valid = _column(1300 + n, n + 15)
+    tv, tm = _t(vals).to(cuda_device), _t(valid).to(cuda_device)
+    zero = tv == 0
+    for ov, om in OFFSETS:
+        v = tv[ov:ov + n]
+        for m in (tm[om:om + n], torch.zeros_like(tm[om:om + n]),
+                  zero[om:om + n] & tm[om:om + n],
+                  tm[om:om + n] & ~torch.isnan(v)):
+            got = tqk.min_max_f64(v, m)
+            for g, w in zip(got, tqk.min_max_f64_plain(v, m)):
+                assert _bits(g.item()) == _bits(w.item()), (ov, om)
+            for g, w in zip(got, tqk.min_max_f64(v.clone(), m.clone())):
+                assert _bits(g.item()) == _bits(w.item()), (ov, om)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K8D_CASES)
+def test_cuda_k8d_edges_equal_plain(cuda_device, name):
+    vals, mask = _k8d_case(name)
+    v, m = _t(vals).to(cuda_device), _t(mask).to(cuda_device)
+    before = _cuda.launches["K8d"]
+    got = tqk.min_max_f64(v, m)
+    assert _cuda.launches["K8d"] == before + 1
+    for g, w in zip(got, tqk.min_max_f64_plain(v, m)):
+        assert _bits(g.item()) == _bits(w.item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K8D_NAN_PAYLOADS))
+def test_cuda_k8d_nan_payloads(cuda_device, name):
+    """The kernel returns one of the masked-in NaNs, the same on every
+    call, where the plain version returns a NaN; masked out, they change
+    no bit."""
+    vals, mask = _k8d_nan_case(name)
+    v, m = _t(vals).to(cuda_device), _t(mask).to(cuda_device)
+    got = [_bits(x.item()) for x in tqk.min_max_f64(v, m)]
+    plain = [x.item() for x in tqk.min_max_f64_plain(v, m)]
+    if name == "masked_out":
+        assert got == [_bits(x) for x in plain], name
+        return
+    nans = {int(_bits(vals[r])) for r in K8D_NAN_PAYLOADS[name]}
+    assert got[0] == got[1] and int(got[0]) in nans, (name, got)
+    assert np.isnan(plain).all(), plain
+    for _ in range(5):
+        assert [_bits(x.item()) for x in tqk.min_max_f64(v, m)] == got
+
+
+@pytest.mark.cuda
+def test_cuda_k8d_bit_identical_repeated_and_on_two_streams(cuda_device):
+    import threading
+
+    n = 1_000_000
+    vals, valid = _column(1400, n)
+    v, m = _t(vals).to(cuda_device), _t(valid).to(cuda_device)
+    fin = m & ~torch.isnan(v)
+    want = [[_bits(x.item()) for x in tqk.min_max_f64(v, mk)]
+            for mk in (m, fin)]
+    assert all([_bits(x.item()) for x in tqk.min_max_f64(v, fin)] == want[1]
+               for _ in range(20))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    got, errors = [None, None], []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                outs = [tqk.min_max_f64(v, (m, fin)[j % 2]) for j in range(50)]
+            streams[i].synchronize()
+            got[i] = [[_bits(x.item()) for x in o] for o in outs]
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert all(g == [want[j % 2] for j in range(50)] for g in got)
+    keys = {(cuda_device.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(tqk._min_max_scratch)
 
 
 # ----------------------------------------------------------------------

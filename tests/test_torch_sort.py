@@ -82,6 +82,47 @@ def test_k5_wrapper_refuses_bad_operands():
         tb.sort_stack_kernel(torch.zeros((8, 9), dtype=torch.int64))
 
 
+def _tie_stack(rng, k, p):
+    """(K, P, 9) sorted runs tied on every compared word: cols 0-7 from
+    {0, 1}, col 8 distinct, and a sentinel tail of an eighth of the rows
+    (sentinel rows sort last, so each run stays sorted)."""
+    n = k * p
+    flat = rng.integers(0, 2, size=(n, 9), dtype=np.uint64).astype(np.uint32)
+    flat[:, 8] = rng.permutation(n).astype(np.uint32)
+    flat[n - n // 8:] = SENT
+    st = flat.reshape(k, p, 9)
+    if p > 1:  # a one-row run is sorted already
+        for r in range(k):
+            st[r] = st[r][np.lexsort(st[r, :, :8].T[::-1])]
+    return st
+
+
+# K5's tile on the card (Tile<9>::rows in csrc/bitonic.cu): N at half a
+# tile (one launch), one tile, two (one level past the tile) and four;
+# one-row runs (sort_stack_kernel) and K = 4 runs of N/4 rows (at 4
+# tiles the first launch runs no level).
+K5_TILE = 1024
+K5_SIZES = [K5_TILE // 2, K5_TILE, 2 * K5_TILE, 4 * K5_TILE]
+
+
+@pytest.mark.parametrize("p_kind", ["one_row_runs", "four_runs"])
+@pytest.mark.parametrize("n", K5_SIZES)
+def test_k5_plain_equals_jax_at_tile_sizes(n, p_kind):
+    rng = np.random.default_rng(n + len(p_kind))
+    k, p = (n, 1) if p_kind == "one_row_runs" else (4, n // 4)
+    st = _tie_stack(rng, k, p)
+    if p == 1:
+        want_out, want_same = jb.sort_stack_kernel(st[:, 0])
+        got_out, got_same = tb.sort_stack_kernel(tb.to_tensor(st[:, 0], "cpu"))
+    else:
+        want_out, want_same = jb.merge_runs_kernel(st)
+        got_out, got_same = tb.merge_runs_kernel(tb.to_tensor(st, "cpu"))
+    np.testing.assert_array_equal(tb.to_numpy(got_out), np.asarray(want_out))
+    np.testing.assert_array_equal(got_same.numpy(), np.asarray(want_same))
+    # The flags mark whole-row ties; the sentinel tail is never flagged.
+    assert got_same.any() and not got_same[n - n // 8:].any()
+
+
 def _items(seed, n, long_share=0.2):
     """Unique keys: short ones, and long ones sharing 16-byte prefixes
     (prefix + length ties the device order cannot break)."""
@@ -292,3 +333,33 @@ def test_cuda_sort_items_equals_host(cuda_device):
     before = tb.launches["K5"]
     assert tsort.sort_items(list(items)) == sorted(items, key=lambda kv: kv[0])
     assert tb.launches["K5"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n", [1, 2, 4, K5_TILE // 2, K5_TILE, 2 * K5_TILE, 1 << 17, 1 << 19,
+          1 << 20],
+)
+def test_cuda_k5_schedule_equals_plain(cuda_device, n):
+    """The grouped schedule (csrc/bitonic.cu k5_merge_rows) bit-equal
+    to the network at every N from one row to the mesh's final sort:
+    full 8-word ties, a sentinel tail.  Past N = tile^2/2 = 2^19 the
+    last level runs its strides of a tile or more one launch each."""
+    x = tb.to_tensor(_tie_stack(np.random.default_rng(n), n, 1)[:, 0],
+                     cuda_device)
+    before = tb.launches["K5"]
+    got = tb.sort_stack_kernel(x)
+    assert tb.launches["K5"] == before + 1
+    for g, w in zip(got, tb.merge_rows_plain(x[:, None])):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(8, 1 << 14), (2, 1 << 16)])
+def test_cuda_k5_long_runs_equal_plain(cuda_device, k, p):
+    st = tb.to_tensor(_tie_stack(np.random.default_rng(k), k, p),
+                      cuda_device)
+    for g, w in zip(tb.merge_runs_kernel(st), tb.merge_rows_plain(st)):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
