@@ -17,14 +17,16 @@ Phases (any failure exits non-zero):
                 side by side.
   2. kernels  — K1-K9b at the shapes the main path gives
                 them, on adversarial data, each bit-equal to its plain
-                PyTorch version on the card; K2 and K3 (the merge path)
-                also on edge shapes — full prefix ties, one run holding
-                every row, all counts 0, K up to 256, J = 8 with empty
-                slots, odd out_rows (K8c's sum within
-                n * 2^-52 * sum|x| of math.fsum); K5 also at the mesh's
-                final sort (524288, 9), and on edge shapes (N of 1 to
-                two tiles, long runs with P > 1, the per-stage launches
-                past N = tile^2/2);
+                PyTorch version on the card; K1, K2 and K3 (the merge
+                path) also on edge shapes — full key ties, valid keys
+                of 0xFFFFFFFF, one run holding every row, all counts 0,
+                K up to 256, J = 8 with empty slots, odd out_rows (K8c's
+                sum within n * 2^-52 * sum|x| of math.fsum); K5 also at
+                the mesh's final sort (524288, 9), and on edge shapes (N
+                of 1 to two tiles, long runs with P > 1, the per-stage
+                launches past N = tile^2/2); K4 (K5's schedule) on edge
+                shapes too (K = 1, runs below, at and above the tile,
+                N = 2^20), with each launch's device time as K5's;
                 K8a, K8c and K8d also on odd lengths and misaligned
                 views, K8c and K8d bit-identical over repeated calls and
                 on two streams at once; times the
@@ -308,17 +310,17 @@ def _host_us(torch, fn, calls: int = 100) -> float:
     return took / calls * 1e6
 
 
-def _sorted_runs(np, rng, j, k, p, words, hi, counts):
+def _sorted_runs(np, rng, j, k, p, words, hi, counts, salt=0.01):
     """Sentinel-padded sorted runs: (j, k, p[, words]) u32, values
     below ``hi`` (small ``hi`` = heavy duplicates), 0xFFFFFFFF salted
-    into valid rows, ``counts`` valid rows per run."""
+    into valid rows at rate ``salt``, ``counts`` valid rows per run."""
     shape = (j, k, p) + ((words,) if words > 1 else ())
     out = np.full(shape, 0xFFFFFFFF, dtype=np.uint32)
     for jj in range(j):
         for r in range(k):
             c = int(counts[jj, r])
             v = rng.integers(0, hi, size=(c, words), dtype=np.uint64)
-            v[rng.random(c) < 0.01, :] = 0xFFFFFFFF
+            v[rng.random(c) < salt, :] = 0xFFFFFFFF
             v = v[np.lexsort(v.T[::-1])] if c else v
             if words > 1:
                 out[jj, r, :c] = v
@@ -465,53 +467,63 @@ def _k8_edges(torch, np, Q, rng, odd, bit_err):
 
 
 def _merge_path_edges(torch, np, B, rng, bit_err):
-    """K2 and K3 (csrc/merge_path.cu) off the main-path shapes, on the
-    card, each bit-equal to its plain version (the network): every row
-    tied on the prefix (hi = 1, so the tiles' cuts fall inside long
-    equal-prefix stretches), one run holding every row, all counts 0,
-    K in {1, 2, 16, 256} with their pack_bits, J = 1 and J = 8 with
-    empty slots, runs shorter than a tile, a job shorter than a packed
-    word, and out_rows of 1, of a non-multiple of the tile and of K*P.
-    Returns the number of cases."""
+    """K1, K2 and K3 (csrc/merge_path.cu) off the main-path shapes, on
+    the card, each bit-equal to its plain version (the network): every
+    row tied on the key (hi = 1, so the tiles' cuts fall inside long
+    equal-key stretches), half the valid keys 0xFFFFFFFF (tied with the
+    padding), one run holding every row, all counts 0, K in {1, 2, 16,
+    256} with their pack_bits, J = 1 and J = 8 with empty slots, runs
+    shorter than a tile, a job shorter than a packed word, and out_rows
+    of 1, of a non-multiple of the tile and of K*P.  K1 and K2 run the
+    same cases, K1 on a generator of its own.  Returns the number of
+    cases."""
     dev = torch.device("cuda")
     T = lambda a: B.to_tensor(a, dev)  # noqa: E731
 
-    def counts_of(kind, j, k, p):
+    def counts_of(kind, j, k, p, gen=rng):
         if kind == "zero":
             return np.zeros((j, k), np.uint32)
         if kind == "one_run":  # run 1 of each job holds every row
             c = np.zeros((j, k), np.uint32)
             c[:, min(1, k - 1)] = p
             return c
-        c = rng.integers(0, p + 1, size=(j, k)).astype(np.uint32)
+        c = gen.integers(0, p + 1, size=(j, k)).astype(np.uint32)
         c[0, 0] = 0
         c[-1, -1] = p
         if kind == "empty_slots":
             c[1::2] = 0
         return c
 
-    # (J, K, P, hi, counts, pack_bits or None for rid_pack_bits(K))
+    # (J, K, P, hi, counts, pack_bits or None for rid_pack_bits(K), salt)
     packed = [
-        (1, 2, 8192, 1, "rand", None),
-        (1, 2, 8, 1, "rand", None),  # 16 rows: one padded word
-        (8, 16, 512, 1, "empty_slots", None),
-        (1, 256, 64, 3, "rand", None),
-        (2, 8, 4096, 2, "one_run", None),
-        (4, 8, 1024, 5, "zero", None),
-        (1, 1, 4096, 3, "rand", None),
-        (3, 4, 8, 2, "rand", 16),
-        (8, 8, 16384, 1, "empty_slots", 2),
+        (1, 2, 8192, 1, "rand", None, 0.01),
+        (1, 2, 8, 1, "rand", None, 0.01),  # 16 rows: one padded word
+        (8, 16, 512, 1, "empty_slots", None, 0.01),
+        (1, 256, 64, 3, "rand", None, 0.01),
+        (2, 8, 4096, 2, "one_run", None, 0.01),
+        (4, 8, 1024, 5, "zero", None, 0.01),
+        (1, 1, 4096, 3, "rand", None, 0.01),
+        (3, 4, 8, 2, "rand", 16, 0.01),
+        (8, 8, 16384, 1, "empty_slots", 2, 0.01),
+        (2, 8, 8192, 3, "rand", None, 0.5),  # keys tied with the padding
     ]
     cases = 0
-    for j, k, p, hi, kind, pb in packed:
-        c = counts_of(kind, j, k, p)
-        pre, cnt = T(_sorted_runs(np, rng, j, k, p, 2, hi, c)), T(c)
-        pb = pb or B.rid_pack_bits(k)
-        if bit_err("K2", B.merge_runs_prefix64_packed_batch_kernel(pre, cnt, pb),
-                   B.prefix64_packed_plain(pre, cnt, pb)):
-            raise AssertionError(f"K2 edge (J={j}, K={k}, P={p}, hi={hi}, "
-                                 f"{kind}, pack_bits={pb}): differs")
-        cases += 1
+    for name, words, gen, kernel, plain in (
+        ("K2", 2, rng, B.merge_runs_prefix64_packed_batch_kernel,
+         B.prefix64_packed_plain),
+        ("K1", 1, np.random.default_rng(1),
+         B.merge_runs_prefix32_packed_batch_kernel, B.prefix32_packed_plain),
+    ):
+        for j, k, p, hi, kind, pb, salt in packed:
+            c = counts_of(kind, j, k, p, gen)
+            ops = T(_sorted_runs(np, gen, j, k, p, words, hi, c, salt))
+            cnt = T(c)
+            pb = pb or B.rid_pack_bits(k)
+            if bit_err(name, kernel(ops, cnt, pb), plain(ops, cnt, pb)):
+                raise AssertionError(
+                    f"{name} edge (J={j}, K={k}, P={p}, hi={hi}, {kind}, "
+                    f"pack_bits={pb}, salt={salt}): differs")
+            cases += 1
     # (K, P, hi, counts, out_rows)
     top = [
         (8, 8192, 1, "rand", 1),
@@ -535,8 +547,17 @@ def _merge_path_edges(torch, np, B, rng, bit_err):
                                  f"out_rows={out_rows}): differs")
         cases += 1
     torch.cuda.synchronize()
-    log(f"K2/K3 merge-path edges: {cases} cases bit-equal to the network")
+    log(f"K1/K2/K3 merge-path edges: {cases} cases bit-equal to the "
+        "network")
     return cases
+
+
+def _expect_launches(row, want):
+    """A kernel row's launches a call (torch.profiler) must be ``want``."""
+    if row["device_launches_per_call"] != want:
+        raise AssertionError(
+            f"{row['name']}: {row['device_launches_per_call']:g} launches a "
+            f"call, want {want}")
 
 
 def _timings_text(t) -> str:
@@ -566,13 +587,11 @@ def _k5_stack(np, rng, n, real):
     return st
 
 
-def _k5_edges(torch, np, B, rng, bit_err):
-    """K5's grouped schedule off the main-path shapes, on the card, each
-    bit-equal to its plain version (the network): N of 1, 2, 4, half a
-    tile, a tile and two tiles (a tile is 1024 rows) with full 8-word
-    ties and a sentinel tail; long runs (K, P) = (8, 2^14) and
-    (2, 2^16); and N = 2^20, past tile^2/2, whose last level takes
-    run_network's per-stage launches.  Returns the cases' names."""
+def _schedule_edges(torch, np, B, rng, bit_err, name, kernel, plain, cases):
+    """K5's grouped schedule (K5, or K4 with the index epilogue) off the
+    main-path shapes, on the card: ``kernel`` bit-equal to ``plain``
+    (the network) on stacks of ``cases`` (K, P) with full 8-word ties
+    and a sentinel tail.  Returns the cases' names."""
     dev = torch.device("cuda")
 
     def ties(k, p):
@@ -587,16 +606,14 @@ def _k5_edges(torch, np, B, rng, bit_err):
                 st[r] = st[r][np.lexsort(st[r, :, :8].T[::-1])]
         return B.to_tensor(st, dev)
 
-    cases = [(n, 1) for n in (1, 2, 4, 512, 1024, 2048, 1 << 20)]
-    cases += [(8, 1 << 14), (2, 1 << 16)]
     names = []
     for k, p in cases:
         st = ties(k, p)
-        if bit_err("K5", B.merge_runs_kernel(st), B.merge_rows_plain(st)):
-            raise AssertionError(f"K5 edge (K={k}, P={p}): differs")
+        if bit_err(name, kernel(st), plain(st)):
+            raise AssertionError(f"{name} edge (K={k}, P={p}): differs")
         names.append(f"K={k} P={p}")
     torch.cuda.synchronize()
-    log(f"K5 edges: {len(names)} cases bit-equal to the network")
+    log(f"{name} edges: {len(names)} cases bit-equal to the network")
     return names
 
 
@@ -712,7 +729,10 @@ def phase_kernels(torch, np):
         vals.numel() * 4 + cnt.numel() * 4
         + j * B.packed_words(k, p, pb) * 4,
         n1 * (k.bit_length() - 1) * 2,
+        source="dbeel_tpu_torch/csrc/merge_path.cu",
     )
+    # The merge path: one launch a level.
+    _expect_launches(results[-1], k.bit_length() - 1)
     del key1
 
     # K2 (4, 8, 131072, 2): dense-cluster partitions, exact prefixes.
@@ -753,7 +773,7 @@ def phase_kernels(torch, np):
     )
     del key3, pre3
     merge_path_cases = _merge_path_edges(torch, np, B, rng, bit_err)
-    for row in results[-2:]:
+    for row in results[-3:]:
         row["edge_cases"] = merge_path_cases
 
     # K4 (8, 2^15, 9): full stacks with ties on all 8 compared words.
@@ -772,6 +792,22 @@ def phase_kernels(torch, np):
         None,  # no single PyTorch call sorts 8 key words lexicographically
         stacks.numel() * 4 + k * p * 5,
         k * p * (k.bit_length() - 1) * 8,
+    )
+    # K5's schedule with P >= the tile: a staging launch, then a group
+    # and a tile launch a level.
+    k4 = results[-1]
+    _expect_launches(k4, 1 + 2 * (k.bit_length() - 1))
+    k4["passes_us"] = _pass_profile(
+        torch, lambda: B.merge_runs_perm_kernel(stacks)
+    )
+    log(f"K4 passes (kernel, device us): {json.dumps(k4['passes_us'])}")
+    # K = 1, runs below, at and above the 1024-row tile, and N = 2^20,
+    # past tile^2/2, whose last level takes run_network's per-stage
+    # launches.
+    k4["edge_cases"] = _schedule_edges(
+        torch, np, B, np.random.default_rng(4), bit_err, "K4",
+        B.merge_runs_perm_kernel, B.perm_plain,
+        [(1, 8), (64, 16), (2, 1024), (4, 2048), (8, 1 << 17)],
     )
     del stacks
 
@@ -820,7 +856,14 @@ def phase_kernels(torch, np):
         for x in (stack5, stack_mesh)
     }
     log(f"K5 passes (kernel, device us): {json.dumps(k5['passes_us'])}")
-    k5["edge_cases"] = _k5_edges(torch, np, B, rng5, bit_err)
+    # N of 1, 2, 4, half a tile, a tile and two tiles; long runs; and
+    # N = 2^20, past tile^2/2.
+    k5["edge_cases"] = _schedule_edges(
+        torch, np, B, rng5, bit_err, "K5", B.merge_runs_kernel,
+        B.merge_rows_plain,
+        [(n, 1) for n in (1, 2, 4, 512, 1024, 2048, 1 << 20)]
+        + [(8, 1 << 14), (2, 1 << 16)],
+    )
     del stack5, stack_mesh
 
     # K6 (8, 4, 131072, 2): the coalesced batch of the shards phase —

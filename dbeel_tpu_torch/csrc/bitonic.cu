@@ -1,16 +1,15 @@
 // Bitonic merge network over K sorted runs — the compaction merge and
-// flush sort kernels of dbeel_tpu_torch (K1 and K4-K7 of PERF.md), for
-// Hopper (sm_90a).  K2 and K3 are merge-path merges (csrc/merge_path.cu).
+// flush sort kernels of dbeel_tpu_torch (K4-K7 of PERF.md), for Hopper
+// (sm_90a).  K1, K2 and K3 are merge-path merges (csrc/merge_path.cu).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py:
-//   K1 merge_runs_prefix32_packed_batch_kernel  (bitonic.py:235, body :202)
 //   K4 merge_runs_perm_kernel                    (bitonic.py:104, :81)
 //   K5 merge_runs_kernel / sort_stack_kernel     (bitonic.py:95, :114)
 //   K6 merge_runs_prefix_batch_kernel            (bitonic.py:284)
 //   K7 _sort_kernel + _same_key_mask    (dbeel_tpu/ops/merge.py:35, :42)
 //
-// Data: a flat array of N = J*K*P rows of W u32 words (W = 2, 3, 9),
-// compared lexicographically on the first NCMP words (2, 3, 8).  The
+// Data: a flat array of N = J*K*P rows of W u32 words (W = 3, 9),
+// compared lexicographically on the first NCMP words (3, 8).  The
 // network is the JAX one exactly, not only its sorted result: per level
 // l (runs of P_l = P << l rows), each odd run is reversed (JAX's
 // concat(a, b[::-1]), _merge_level :70) and half-cleaner stages with
@@ -20,25 +19,27 @@
 // long keys sharing a 16-byte prefix, a length, a ts and a source).  The
 // reversal is fused into the first stage of each level: one thread owns
 // the two pairs (t, h-1-t) a reversal would exchange, so no pass is
-// spent on it.  The batch axis J of K1/K6 needs nothing: runs are
+// spent on it.  The batch axis J of K6 needs nothing: runs are
 // pow2-sized and the levels stop at K*P rows, so no level's pair ever
 // crosses a batch boundary.  K5's flush sort is the P = 1 case (every
 // row its own run): a one-row run reverses to itself, so its first
-// level's flip is a plain stage.  K7 is the same P = 1 network on nine
-// separate operand columns: lax.sort of 9 u32 operands on 8 keys, with
-// a staging pass from columns to rows before it and a column epilogue
-// (plus _same_key_mask's flags) after it.
+// level's flip is a plain stage.  K4 is K5's network with another
+// epilogue: the sorted rows' word 8 and the same-key flags, not the
+// rows.  K7 is the same P = 1 network on nine separate operand columns:
+// lax.sort of 9 u32 operands on 8 keys, with a staging pass from columns
+// to rows before it and a column epilogue (plus _same_key_mask's flags)
+// after it.
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
-// integer ops each, far under the card's integer rate.  For K1, K4, K6
-// and K7 (run_network) this first version runs strides >= TILE/2 as one
+// integer ops each, far under the card's integer rate.  For K6 and K7
+// (run_network) this first version runs strides >= TILE/2 as one
 // global-memory launch per stage and every smaller stride of a level in
 // one shared-memory tile launch (TILE rows of W words, <= 36 KiB), so a
-// level costs (log2(2 P_l) - log2(TILE) + 2) passes over the rows.  K5
-// runs the same stages in two passes a level ("K5: the same network in
-// fewer passes" below).  None is near the bound yet; PERF.md keeps their
-// times.
+// level costs (log2(2 P_l) - log2(TILE) + 2) passes over the rows.  K4
+// and K5 run the same stages in two passes a level ("K4 and K5: the same
+// network in fewer passes" below).  None is near the bound yet; PERF.md
+// keeps their times.
 //
 // Interface: plain C, launched on the caller's stream, no allocation
 // (the wrapper passes the work buffer), returns cudaGetLastError().
@@ -53,10 +54,6 @@ constexpr int kThreads = 256;
 
 template <int W>
 struct Tile;
-template <>
-struct Tile<2> {
-  static constexpr uint32_t rows = 4096;  // 32 KiB
-};
 template <>
 struct Tile<3> {
   static constexpr uint32_t rows = 2048;  // 24 KiB
@@ -202,8 +199,7 @@ __global__ void tile_kernel(uint32_t* rows, uint32_t tile, uint32_t s_start,
 }
 
 // Stage the rows: copy `src_w` words per row from the operand and, when
-// src_w < W, build the index column on the device (bitonic.py :140-146,
-// :206-211): iota (run << logP) | pos for valid rows, SENTINEL past the
+// src_w < W, build the index column on the device (bitonic.py :140-146): iota (run << logP) | pos for valid rows, SENTINEL past the
 // run's count.  Row i = ((j * K) + r) * P + p.
 template <int W>
 __global__ void stage_rows_kernel(const uint32_t* src, int src_w,
@@ -221,30 +217,6 @@ __global__ void stage_rows_kernel(const uint32_t* src, int src_w,
   }
 }
 
-// _pack_rids (bitonic.py :181): per batch, the sorted index column's run
-// ids ((idx >> logP) & mask), `per` = 32/pack_bits to a word, low bits
-// first; the ragged tail pads with SENTINEL's run-id bits.
-template <int W>
-__global__ void pack_rids_kernel(const uint32_t* rows, uint64_t rows_per_b,
-                                 uint64_t words_per_b, uint64_t total,
-                                 uint32_t log_p, uint32_t pack_bits,
-                                 uint32_t* out) {
-  const uint64_t g = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const uint64_t j = g / words_per_b;
-  const uint64_t w = g % words_per_b;
-  const uint32_t per = 32 / pack_bits;
-  const uint32_t mask = (1u << pack_bits) - 1;
-  uint32_t word = 0;
-  for (uint32_t e = 0; e < per; ++e) {
-    const uint64_t n = w * per + e;
-    const uint32_t idx =
-        n < rows_per_b ? rows[(j * rows_per_b + n) * W + W - 1] : kSentinel;
-    word |= ((idx >> log_p) & mask) << (e * pack_bits);
-  }
-  out[g] = word;
-}
-
 // K6 epilogue: per job j, the index column of its first out_rows
 // rows, out[j, r] = rows[j * K*P + r][W-1].
 template <int W>
@@ -255,23 +227,6 @@ __global__ void top_rows_kernel(const uint32_t* rows, uint64_t rows_per_j,
   if (g >= total) return;
   const uint64_t j = g / out_rows;
   out[g] = rows[(j * rows_per_j + g % out_rows) * W + W - 1];
-}
-
-// K4 epilogue (_merged_with_same :81-90): index column 8, and same-key
-// flags over words 0-4 with the sentinel check on word 4.
-__global__ void perm_same_kernel(const uint32_t* rows, uint64_t n,
-                                 uint32_t* idx, uint8_t* same) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  idx[i] = rows[i * 9 + 8];
-  uint8_t s = 0;
-  if (i > 0) {
-    bool eq = true;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) eq = eq && rows[i * 9 + c] == rows[(i - 1) * 9 + c];
-    s = eq && rows[i * 9 + 4] != kSentinel;
-  }
-  same[i] = s;
 }
 
 // K7 staging: nine separate operand columns (column c at cols + c*n)
@@ -286,7 +241,7 @@ __global__ void cols_to_rows_kernel(const uint32_t* cols, uint64_t n,
 
 // K7 epilogue: the sorted rows back as nine columns, and
 // _same_key_mask (merge.py:42) — same[i] = words 0-4 of row i equal
-// those of row i-1, with no sentinel check (unlike K4/K5's epilogues).
+// those of row i-1, with no sentinel check (unlike K4/K5's epilogue).
 __global__ void rows_to_cols_same_kernel(const uint32_t* rows, uint64_t n,
                                          uint32_t* cols, uint8_t* same) {
   const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
@@ -341,32 +296,15 @@ cudaError_t run_network(uint32_t* rows, uint64_t n, uint64_t k, uint64_t p,
   return cudaGetLastError();
 }
 
-template <int W, int NCMP>
-int packed_merge(const uint32_t* operand, const uint32_t* counts, uint32_t j,
-                 uint32_t k, uint32_t p, uint32_t pack_bits, uint32_t* work,
-                 uint32_t* out, cudaStream_t st) {
-  const uint64_t n = (uint64_t)j * k * p;
-  const uint32_t log_p = log2_exact(p);
-  stage_rows_kernel<W><<<blocks_for(n), kThreads, 0, st>>>(
-      operand, W - 1, counts, log2_exact(k), log_p, n, work);
-  cudaError_t err = run_network<W, NCMP>(work, n, k, p, st);
-  if (err != cudaSuccess) return (int)err;
-  const uint64_t per = 32 / pack_bits;
-  const uint64_t rows_per_b = (uint64_t)k * p;
-  const uint64_t words_per_b = (rows_per_b + per - 1) / per;
-  pack_rids_kernel<W><<<blocks_for(j * words_per_b), kThreads, 0, st>>>(
-      work, rows_per_b, words_per_b, j * words_per_b, log_p, pack_bits, out);
-  return (int)cudaGetLastError();
-}
-
-// ---- K5: the same network in fewer passes ---------------------------------
+// ---- K4 and K5: the same network in fewer passes --------------------------
 //
-// K5 runs run_network's stages exactly (rows of 9 words compared on 8, the
-// reversal fused into each level's first stage, a swap only on a strict
-// lex_gt, the same shared-memory stages smem_stage and smem_flip), but
-// groups them into fewer passes over the rows.  With a tile of TILE =
-// Tile<9>::rows = 1024 rows (36 KiB of shared memory; 128 blocks at the
-// flush shape of 2^17 rows, about one an SM) and N > TILE:
+// K5, and K4 with its own epilogue, run run_network's stages exactly
+// (rows of 9 words compared on 8, the reversal fused into each level's
+// first stage, a swap only on a strict lex_gt, the same shared-memory
+// stages smem_stage and smem_flip), but group them into fewer passes
+// over the rows.  With a tile of TILE = Tile<9>::rows = 1024 rows (36 KiB
+// of shared memory; 128 blocks at the flush shape of 2^17 rows, about
+// one an SM) and N > TILE:
 //   1. one tile launch stages the operand and runs every level whose
 //      segments (2h rows) lie within a tile: h = P .. TILE/2;
 //   2. per later level, one group launch runs every stage of stride
@@ -382,8 +320,9 @@ int packed_merge(const uint32_t* operand, const uint32_t* counts, uint32_t j,
 //      plain half-cleaner in shared memory, and writes the rows back in
 //      place: one pass for what took 1 + log2(h/TILE) launches;
 //   3. per later level, one tile launch for the strides TILE/2 .. 1;
-//   4. the last tile launch writes the sorted rows to the output, and
-//      the same-key flags (_merged_with_same :81-90).  A tile's first
+//   4. the last tile launch writes the same-key flags (_merged_with_same
+//      :81-90) and, as its epilogue, K5 the sorted rows, K4 only their
+//      word 8 (the carried index) from shared memory.  A tile's first
 //      row is compared with the previous tile's last row, which is the
 //      lexicographic maximum of the previous tile's rows: a tile launch
 //      only permutes rows within a tile, and this one reads the work
@@ -391,18 +330,22 @@ int packed_merge(const uint32_t* operand, const uint32_t* counts, uint32_t j,
 //      the previous tile's rows itself and no block waits on another.
 // That is 1 + 2 log2(N/TILE) launches (15 at N = 2^17, 19 at 2^19) where
 // run_network with the staging and epilogue launches takes 47 and 66.
+// Runs of P >= TILE rows (K4's (8, 2^15)) leave the first launch nothing
+// to merge: it only stages the operand, and the call is 1 + 2 log2(K)
+// launches (7 at K = 8, where run_network took 26).
 // The group needs G <= TILE/2, i.e. N <= TILE^2/2 (2^19 at TILE 1024); a
 // level past that runs its stages of stride >= TILE one launch each, as
 // run_network does, so any power-of-two N stays correct.
 //
 // Bound: bytes, as for the network above.  Every pass reads and writes
 // the 36 B rows once (a tile's words, or a group's chunks of L rows, in
-// coalesced 4-byte accesses), and the stages run in shared memory, where
-// a stage moves 18 words per row pair: the shared-memory traffic of the
-// 10 stages of a tile (55 in the first launch) is what the passes wait
-// on, next to the launches themselves (PERF.md §6 has each pass's time).
+// coalesced 4-byte accesses; K4's last pass writes 5 B a row), and the
+// stages run in shared memory, where a stage moves 18 words per row
+// pair: the shared-memory traffic of the 10 stages of a tile (55 in the
+// first launch) is what the passes wait on, next to the launches
+// themselves (PERF.md §6 has each pass's time).
 
-constexpr uint32_t kRowW = 9;  // K5 rows: words 0-7 compared, 8 carried
+constexpr uint32_t kRowW = 9;  // K4/K5 rows: words 0-7 compared, 8 carried
 
 // Copies the block's tile * 9 words, word e from load(e) to store(e, v),
 // nine loads in flight a thread (one block an SM holds too few warps to
@@ -461,12 +404,14 @@ __device__ void k5_max5(const uint32_t* src, uint32_t rows, uint32_t* out) {
 // One tile of `tile` rows per block, rows [b*tile, (b+1)*tile) of src:
 // the strides s_start..1 of a level whose larger strides ran already
 // (s_start = 0: none), then every level h = h_first, 2*h_first, ... with
-// 2h <= tile, then the tile to dst.  With `same` (the last pass: dst is
-// the output, src the work buffer or the operand, never dst), the
-// same-key flags too.  src may equal dst otherwise.
+// 2h <= tile, then the tile to dst.  With `same` (the last pass: src the
+// work buffer or the operand, never an output) the same-key flags too,
+// and with `idx` (K4's last pass; dst unused) each sorted row's word 8 to
+// idx in place of the tile to dst.  src may equal dst otherwise.
 __global__ void __launch_bounds__(512, 2)
-    k5_tile_kernel(const uint32_t* src, uint32_t* dst, uint32_t tile,
-                   uint32_t s_start, uint32_t h_first, uint8_t* same) {
+    k5_tile_kernel(const uint32_t* src, uint32_t* dst, uint32_t* idx,
+                   uint32_t tile, uint32_t s_start, uint32_t h_first,
+                   uint8_t* same) {
   extern __shared__ uint32_t sm[];
   __shared__ uint32_t prev[5];
   const uint64_t off = (uint64_t)blockIdx.x * tile * kRowW;
@@ -495,9 +440,14 @@ __global__ void __launch_bounds__(512, 2)
       same[(uint64_t)blockIdx.x * tile + i] = flag;
     }
   }
-  k5_copy(
-      tile, [&](uint32_t e) { return sm[e]; },
-      [&](uint32_t e, uint32_t v) { dst[off + e] = v; });
+  if (idx) {
+    for (uint32_t i = threadIdx.x; i < tile; i += blockDim.x)
+      idx[(uint64_t)blockIdx.x * tile + i] = sm[i * kRowW + 8];
+  } else {
+    k5_copy(
+        tile, [&](uint32_t e) { return sm[e]; },
+        [&](uint32_t e, uint32_t v) { dst[off + e] = v; });
+  }
 }
 
 // Every stage of stride >= tile of one level, in place on `rows`:
@@ -544,9 +494,11 @@ __global__ void __launch_bounds__(512, 2)
       [&](uint32_t e, uint32_t v) { rows[global_word(e)] = v; });
 }
 
+// K5 (out: the sorted rows) or K4 (idx: their word 8; out null), with
+// the same-key flags; work holds n*9 words.
 int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
-                  uint32_t* work, uint32_t* out, uint8_t* same,
-                  cudaStream_t st) {
+                  uint32_t* work, uint32_t* out, uint32_t* idx,
+                  uint8_t* same, cudaStream_t st) {
   const uint32_t tile = (uint32_t)(n < Tile<9>::rows ? n : Tile<9>::rows);
   const unsigned blocks = (unsigned)(n / tile);
   const unsigned threads = tile < 2 ? 1 : tile / 2;
@@ -555,8 +507,8 @@ int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
   while (2 * h <= tile) h <<= 1;
   bool last = h >= n;
   k5_tile_kernel<<<blocks, threads, smem, st>>>(
-      stacks, last ? out : work, tile, 0, (uint32_t)(p < tile ? p : tile),
-      last ? same : nullptr);
+      stacks, last ? out : work, last ? idx : nullptr, tile, 0,
+      (uint32_t)(p < tile ? p : tile), last ? same : nullptr);
   for (; h < n; h <<= 1) {
     const uint64_t g = 2 * h / tile;
     if (g <= tile / 2) {
@@ -571,7 +523,8 @@ int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
     }
     last = 2 * h == n;
     k5_tile_kernel<<<blocks, threads, smem, st>>>(
-        work, last ? out : work, tile, tile / 2, tile, last ? same : nullptr);
+        work, last ? out : work, last ? idx : nullptr, tile, tile / 2, tile,
+        last ? same : nullptr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -581,16 +534,6 @@ int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
 }  // namespace
 
 extern "C" {
-
-// K1: vals (J,K,P) u32, counts (J,K) u32 -> out (J, ceil(K*P/(32/pack_bits)))
-// u32; work holds J*K*P*2 u32.
-int dbeel_bitonic_prefix32_packed(const uint32_t* vals, const uint32_t* counts,
-                                  uint32_t j, uint32_t k, uint32_t p,
-                                  uint32_t pack_bits, uint32_t* work,
-                                  uint32_t* out, void* stream) {
-  return packed_merge<2, 2>(vals, counts, j, k, p, pack_bits, work, out,
-                            (cudaStream_t)stream);
-}
 
 // K6: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out (J, out_rows) u32,
 // per job packed (run << logP) | pos with its iota restarting at 0 (the
@@ -615,31 +558,28 @@ int dbeel_bitonic_prefix_top_batch(const uint32_t* prefixes,
   return (int)cudaGetLastError();
 }
 
-// K4: stacks (K,P,9) u32 -> idx (K*P,) u32 + same (K*P,) bytes 0/1;
-// work holds K*P*9 u32.
+// K4: stacks (K,P,9) u32 -> idx (K*P,) u32, the sorted rows' word 8, +
+// same (K*P,) bytes 0/1; work holds K*P*9 u32.  K5's schedule with the
+// index epilogue (see "K4 and K5: the same network in fewer passes").
+// Bound: bytes (the stack read once, the index and the flags written
+// once).  Counted as "K4" by ops/bitonic.py merge_runs_perm_kernel.
 int dbeel_bitonic_perm(const uint32_t* stacks, uint32_t k, uint32_t p,
                        uint32_t* work, uint32_t* idx, uint8_t* same,
                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint64_t n = (uint64_t)k * p;
-  stage_rows_kernel<9><<<blocks_for(n), kThreads, 0, st>>>(
-      stacks, 9, nullptr, log2_exact(k), log2_exact(p), n, work);
-  cudaError_t err = run_network<9, 8>(work, n, k, p, st);
-  if (err != cudaSuccess) return (int)err;
-  perm_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, idx, same);
-  return (int)cudaGetLastError();
+  return k5_merge_rows(stacks, (uint64_t)k * p, p, work, nullptr, idx, same,
+                       (cudaStream_t)stream);
 }
 
 // K5: stacks (K,P,9) u32 -> out (K*P, 9) u32, the whole sorted stack, +
 // same (K*P,) bytes 0/1; work holds K*P*9 u32.  The flush sort
-// (sort_stack_kernel) is K = N rows, P = 1.  See "K5: the same network
-// in fewer passes".  Bound: bytes (the stack read once, the sorted stack
+// (sort_stack_kernel) is K = N rows, P = 1.  See "K4 and K5: the same
+// network in fewer passes".  Bound: bytes (the stack read once, the sorted stack
 // and the flags written once).  Counted as "K5" by ops/bitonic.py
 // merge_runs_kernel.
 int dbeel_bitonic_merge_rows(const uint32_t* stacks, uint32_t k, uint32_t p,
                              uint32_t* work, uint32_t* out, uint8_t* same,
                              void* stream) {
-  return k5_merge_rows(stacks, (uint64_t)k * p, p, work, out, same,
+  return k5_merge_rows(stacks, (uint64_t)k * p, p, work, out, nullptr, same,
                        (cudaStream_t)stream);
 }
 

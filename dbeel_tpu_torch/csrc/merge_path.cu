@@ -1,38 +1,43 @@
-// Merge-path merge of sorted runs — K2 and K3 of dbeel_tpu_torch
+// Merge-path merge of sorted runs — K1, K2 and K3 of dbeel_tpu_torch
 // (PERF.md) for Hopper (sm_90a).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py
+//   K1 merge_runs_prefix32_packed_batch_kernel  (bitonic.py:235, body :202)
 //   K2 merge_runs_prefix64_packed_batch_kernel  (bitonic.py:251, body :218)
 //   K3 merge_runs_prefix_kernel / _prefix_kernel_from_runs (:153, :379)
 // which csrc/bitonic.cu ran stage for stage (one global pass per large
-// stride, 29-32 launches a call).  Here each level of the pairwise merge
+// stride, 26-32 launches a call).  Here each level of the pairwise merge
 // is one launch and one pass: K = 8 runs take 3.
 //
 // Why the order may differ from the network's and the bits may not.
-// Every row is (k0, k1, idx) and every word is compared (W == NCMP).  A
-// valid row's idx = (run << logP) | pos is unique; a padding row (pos >=
-// count) is SENTINEL in every word.  So two rows tie on every compared
-// word only if both are padding, and then they are bit-identical.  On
-// sorted runs the network outputs the sorted sequence of the rows, which
-// is unique under that condition, so any correct merge gives the same
-// bits.  K4, K5 and K7 (9 words, 8 compared, full 8-word ties between
-// rows that differ in the carried word) have no such freedom and stay on
-// the network.
+// Every row is (key words..., idx) and every word is compared (W ==
+// NCMP): K1's (v, idx), K2's and K3's (k0, k1, idx).  A valid row's idx
+// = (run << logP) | pos is unique; a padding row (pos >= count) is
+// SENTINEL in every word.  So two rows tie on every compared word only
+// if both are padding, and then they are bit-identical.  On sorted runs
+// the network outputs the sorted sequence of the rows, which is unique
+// under that condition, so any correct merge gives the same bits (a
+// valid K1 value of 0xFFFFFFFF ties with the padding on its key and
+// sorts before it on idx, in the network and here alike).  K4, K5 and
+// K7 (9 words, 8 compared, full 8-word ties between rows that differ
+// in the carried word) have no such freedom and keep the network's
+// order (csrc/bitonic.cu).
 //
 // Precondition (the caller's, as for the network): each run sorted on
 // its compared words, padding rows SENTINEL in every key word.  Unsorted
 // input gives an unspecified order but never an access out of bounds.
-// The operand is 8-byte aligned (the wrapper checks).
+// K2/K3's operand is 8-byte aligned (a row's key is one 8-byte load;
+// the wrapper checks), K1's 4-byte (an int32 tensor always is).
 //
 // Design.  A level merges each pair (A, B) of neighbouring sequences of
 // L rows into 2L (K = 1: one run, B empty, the epilogue alone).  A block
 // owns a tile of 4096 output rows of one pair (256 threads, 52 KB of
-// shared memory, four blocks an SM).  Warps 0 and 1 find the tile's two
+// shared memory for K2/K3, 34 KB for K1).  Warps 0 and 1 find the tile's two
 // cuts on the merge path (co-rank: how many of the first d outputs come
 // from A) by a 32-way search in global memory, four rounds at L = 2^18.
 // The block copies the tile's A and B rows into shared memory with
-// cp.async as two columns, the key (k0, k1 as they lie in memory: one
-// u64, compared k0 first) and idx; one slot of skew per 128 bytes of a
+// cp.async as two columns, the key (K1's u32; K2/K3's k0, k1 as they lie
+// in memory: one u64, compared k0 first) and idx; one slot of skew per 128 bytes of a
 // column keeps the staging free of bank conflicts.  Each thread finds
 // its own cut inside the tile by binary search and merges 16 rows
 // sequentially, A first on ties, into registers; the idx go back to
@@ -45,15 +50,16 @@
 // stays in the 50 MB L2 across its levels.  Fusions: the first level
 // builds idx from (run, pos, counts) as it loads, so no staging pass;
 // an intermediate level writes idx into one of two work halves
-// (ping-pong); the last level writes only the epilogue — K2 the run
-// ids, packed pack_bits to a word in shared memory before the store, K3
+// (ping-pong); the last level writes only the epilogue — K1 and K2 the
+// run ids, packed pack_bits to a word in shared memory before the store, K3
 // the idx of the first out_rows rows, with no block launched past them.
 // The batch axis J is more blocks.
 //
 // Bound: bytes.  The operand is read once and the epilogue written once
-// (K2 at (4, 8, 131072, 2): 32 MiB + 2 MiB, 10.6 us at 3.35 TB/s).  Each
+// (K2 at (4, 8, 131072, 2): 32 MiB + 2 MiB, 10.6 us at 3.35 TB/s; K1 at
+// (4, 8, 131072): 16 MiB + 2 MiB, 5.6 us).  Each
 // intermediate level adds a write and a read of 4 bytes a row and a
-// fetch of its 8-byte key; the comparisons are a few integer ops per
+// fetch of its 4- or 8-byte key; the comparisons are a few integer ops per
 // row and level.  What holds it above the bound (PERF.md): each level
 // is one wave of blocks in lock step, search, load, merge and store in
 // turn, and the level-by-level passes.
@@ -73,7 +79,7 @@ constexpr uint32_t kMinThreads = 64;  // warps 0 and 1 search one cut each
 
 enum Mode { kRows = 0, kTop = 1, kPacked = 2 };
 
-// A row's W-1 key words as one integer: W = 2 one u32; W = 3 the words
+// A row's W-1 key words as one integer: W = 2 (K1) one u32; W = 3 the words
 // (k0, k1) as they lie in memory, a little-endian u64 that compares k0
 // first once its halves swap (a swap is its own inverse).
 template <int W>
@@ -449,6 +455,19 @@ int merge_runs(const uint32_t* operand, const uint32_t* counts, uint32_t j,
 }  // namespace
 
 extern "C" {
+
+// K1: vals (J,K,P) u32, counts (J,K) u32 -> out
+// (J, ceil(K*P/(32/pack_bits))) u32, the merged rows' run ids packed
+// pack_bits to a word; work as for K2.  Counted as "K1" by
+// ops/bitonic.py merge_runs_prefix32_packed_batch_kernel.
+int dbeel_merge_path_prefix32_packed(const uint32_t* vals,
+                                     const uint32_t* counts, uint32_t j,
+                                     uint32_t k, uint32_t p,
+                                     uint32_t pack_bits, uint32_t* work,
+                                     uint32_t* out, void* stream) {
+  return merge_runs<2>(vals, counts, j, k, p, kPacked, 0, pack_bits, work,
+                       out, (cudaStream_t)stream);
+}
 
 // K2: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out
 // (J, ceil(K*P/(32/pack_bits))) u32, the merged rows' run ids packed

@@ -2,8 +2,8 @@
 
 Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
 a shared library with a plain C interface, loaded with ctypes — one
-library per source (``bitonic.cu``: the merge networks K1 and K4-K7;
-``merge_path.cu``: the merge-path merges K2 and K3; ``query.cu``: the
+library per source (``bitonic.cu``: the merge networks K4-K7;
+``merge_path.cu``: the merge-path merges K1-K3; ``query.cu``: the
 filter kernels K8; ``dist.cu``: the sample sort's splitters and bucket
 scatter K9a/K9b), so the builds run side by side
 and a change to one source rebuilds only its library.  A build runs at
@@ -139,9 +139,6 @@ def _load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
 
 def _bind_bitonic(handle: ctypes.CDLL) -> None:
     vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-    handle.dbeel_bitonic_prefix32_packed.argtypes = [
-        vp, vp, u32, u32, u32, u32, vp, vp, vp,
-    ]
     handle.dbeel_bitonic_perm.argtypes = [
         vp, u32, u32, vp, vp, vp, vp,
     ]
@@ -153,7 +150,6 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
     ]
     handle.dbeel_bitonic_sort_dedup_cols.argtypes = [vp, u32, vp, vp, vp, vp]
     for fn in (
-        handle.dbeel_bitonic_prefix32_packed,
         handle.dbeel_bitonic_perm,
         handle.dbeel_bitonic_merge_rows,
         handle.dbeel_bitonic_prefix_top_batch,
@@ -165,6 +161,7 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
 def _bind_merge_path(handle: ctypes.CDLL) -> None:
     vp, u32 = ctypes.c_void_p, ctypes.c_uint32
     for fn in (
+        handle.dbeel_merge_path_prefix32_packed,
         handle.dbeel_merge_path_prefix64_packed,
         handle.dbeel_merge_path_prefix_top,
     ):

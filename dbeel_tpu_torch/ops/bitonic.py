@@ -6,9 +6,9 @@ each pairing neighbouring runs (the odd one reversed, so the pair is a
 bitonic sequence) and sorting the pair with half-cleaner stages of
 strides P_l, P_l/2, ..., 1.  ``dbeel_tpu/ops/bitonic.py`` runs it as
 jax.jit programs on a TPU; here the six networks on the storage path
-are CUDA kernels written for Hopper — K1 and K4-K6 the network stage
-for stage (``csrc/bitonic.cu``; K5 with its stages grouped into two
-passes a level), K2 and K3 a merge-path merge
+are CUDA kernels written for Hopper — K4-K6 the network stage for
+stage (``csrc/bitonic.cu``; K4 and K5 with their stages grouped into
+two passes a level), K1-K3 a merge-path merge
 (``csrc/merge_path.cu``), which may compare rows in another order
 because every word of their rows is compared (the source's note):
 
@@ -260,24 +260,27 @@ def merge_runs_prefix32_packed_batch_kernel(
     merge_runs_prefix32_packed_batch_kernel.  J keyspace partitions
     merged in one launch on (u32 value, device-built index); returns
     the bit-packed run-id sequence (J, ceil(K*P*pack_bits/32)).
-    Bound (bytes): the operand read once plus the packed output written
-    once — at the 10M-key shape (4, 8, 131072) 16 MiB + 2 MiB, about
-    5.6 µs at 3.35 TB/s."""
+    Each run must be sorted, with rows past its count SENTINEL: then the
+    merge path (csrc/merge_path.cu, log2(K) launches) gives the
+    network's bits.  Bound (bytes): the operand read once plus the
+    packed output written once — at the 10M-key shape (4, 8, 131072)
+    16 MiB + 2 MiB, about 5.6 µs at 3.35 TB/s."""
     j, k, p = vals.shape
     _check_runs(k, p)
     _check("vals", vals, (j, k, p))
     _check("counts", counts, (j, k))
+    _check_pack_bits(pack_bits)
     if _device_kind(vals, counts) == "cpu":
         return prefix32_packed_plain(vals, counts, pack_bits)
     out = torch.empty(
         (j, packed_words(k, p, pack_bits)), dtype=torch.int32,
         device=vals.device,
     )
-    work = torch.empty(j * k * p * 2, dtype=torch.int32, device=vals.device)
+    work = _merge_path_work(j, k, p, vals.device)
     with torch.cuda.device(vals.device):
-        rc = _cuda.lib().dbeel_bitonic_prefix32_packed(
+        rc = _cuda.merge_path_lib().dbeel_merge_path_prefix32_packed(
             vals.data_ptr(), counts.data_ptr(), j, k, p, pack_bits,
-            work.data_ptr(), out.data_ptr(), _stream(vals),
+            _ptr(work), out.data_ptr(), _stream(vals),
         )
     _cuda.check(rc, "merge_runs_prefix32_packed_batch_kernel")
     _cuda.count("K1")
@@ -296,6 +299,11 @@ def _merge_path_work(j: int, k: int, p: int, device):
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def _check_pack_bits(pack_bits: int) -> None:
+    if pack_bits not in (1, 2, 4, 8, 16):
+        raise ValueError(f"pack_bits {pack_bits} not in 1, 2, 4, 8, 16")
 
 
 def _check_rows8(name: str, t: torch.Tensor) -> None:
@@ -323,8 +331,7 @@ def merge_runs_prefix64_packed_batch_kernel(
     _check_runs(k, p)
     _check("prefixes", prefixes, (j, k, p, 2))
     _check("counts", counts, (j, k))
-    if pack_bits not in (1, 2, 4, 8, 16):
-        raise ValueError(f"pack_bits {pack_bits} not in 1, 2, 4, 8, 16")
+    _check_pack_bits(pack_bits)
     if _device_kind(prefixes, counts) == "cpu":
         return prefix64_packed_plain(prefixes, counts, pack_bits)
     _check_rows8("prefixes", prefixes)
@@ -385,7 +392,10 @@ def merge_runs_perm_kernel(
     """K4 — replaces dbeel_tpu/ops/bitonic.py:104 merge_runs_perm_kernel
     (network :81 _merged_with_same): lexicographic merge on cols 0-7 of
     the 9-column stack → (sorted entry indices (K*P,), same-key flags
-    (K*P,) bool).  Bound (bytes): the stack read once plus index and
+    (K*P,) bool).  On the card K5's schedule (csrc/bitonic.cu, "K4 and
+    K5: the same network in fewer passes") with an epilogue that writes
+    word 8 alone: 1 + 2 log2(K) launches for runs of 1024 rows or more
+    (7 at K = 8).  Bound (bytes): the stack read once plus index and
     flags written once — 9 MiB + 1.25 MiB at (8, 2^15, 9), about
     3.2 µs at 3.35 TB/s."""
     k, p, _ = stacks.shape

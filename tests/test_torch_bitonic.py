@@ -8,13 +8,17 @@ port reproduces the JAX network stage for stage, not only its sorted
 result.  The ``cuda`` cases hold each CUDA kernel against its plain
 version on a card and skip without one.
 
-K2 and K3 run on the card as a merge-path merge (csrc/merge_path.cu),
-not the network.  What allows it: where every word of a row is compared
-(K1, K2, K3, K6), the network's output on sorted, sentinel-padded runs
-is the rows' unique sorted sequence.  A hypothesis test holds dbeel_tpu's
-K1, K2, K3 and K6 to a numpy model that sorts the rows with np.lexsort;
+K1, K2 and K3 run on the card as a merge-path merge
+(csrc/merge_path.cu), not the network.  What allows it: where every word
+of a row is compared (K1, K2, K3, K6), the network's output on sorted,
+sentinel-padded runs is the rows' unique sorted sequence.  A hypothesis
+test holds dbeel_tpu's K1, K2, K3 and K6 to a numpy model that sorts the
+rows with np.lexsort;
 the ``cuda`` cases hold the merge-path kernels to their plain versions
-on the same generator and at the main path's shapes.
+on the same generator and at the main path's shapes.  K4 runs on the
+card as K5's network schedule with an index-only epilogue: its output is
+K5's word 8 and the same flags, an identity held here on the plain
+versions.
 """
 
 import numpy as np
@@ -123,13 +127,30 @@ def _stacks(rng, k, p):
     return st
 
 
-@pytest.mark.parametrize("k,p", [(1, 8), (2, 16), (8, 64), (16, 32), (2, 1024)])
+# (K, P): K = 1, P below, at and above K5's 1024-row tile on the card.
+K4_SHAPES = [(1, 8), (64, 16), (2, 1024), (4, 2048), (8, 512)]
+
+
+@pytest.mark.parametrize(
+    "k,p", [(1, 8), (2, 16), (8, 64), (16, 32), (2, 1024), (4, 2048)]
+)
 def test_perm_bit_equal_with_full_ties(k, p):
     st = _stacks(np.random.default_rng(400 + k * p), k, p)
     want_idx, want_same = jb.merge_runs_perm_kernel(st)
     got_idx, got_same = tb.merge_runs_perm_kernel(_t(st))
     np.testing.assert_array_equal(tb.to_numpy(got_idx), np.asarray(want_idx))
     np.testing.assert_array_equal(got_same.numpy(), np.asarray(want_same))
+
+
+@pytest.mark.parametrize("k,p", K4_SHAPES)
+def test_perm_is_merge_rows_word8(k, p):
+    """What the card's K4 rests on: K4's output is K5's sorted stack's
+    word 8 with K5's flags, under full 8-word ties and sentinel tails."""
+    st = _t(_stacks(np.random.default_rng(450 + k * p), k, p))
+    idx, same = tb.perm_plain(st)
+    rows, rows_same = tb.merge_rows_plain(st)
+    assert torch.equal(idx, rows[:, 8])
+    assert torch.equal(same, rows_same)
 
 
 def test_wrappers_refuse_bad_operands():
@@ -143,6 +164,11 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError, match="pack_bits"):  # not a word divisor
         tb.merge_runs_prefix64_packed_batch_kernel(
             torch.zeros((1, 2, 8, 2), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int32), 3,
+        )
+    with pytest.raises(ValueError, match="pack_bits"):
+        tb.merge_runs_prefix32_packed_batch_kernel(
+            torch.zeros((1, 2, 8), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), 3,
         )
 
@@ -334,12 +360,35 @@ MERGE_PATH_CASES = [
 @pytest.mark.parametrize("case", MERGE_PATH_CASES)
 def test_cuda_merge_path_equals_plain(cuda_device, case):
     seed, j, k, p, hi, salt, out_rows = case
+    vals, counts1 = _merge_case(seed, j, k, p, hi, salt, 1)
+    v = tb.to_tensor(vals, cuda_device)
+    c1 = tb.to_tensor(counts1, cuda_device)
     runs, counts = _merge_case(seed, j, k, p, hi, salt, 2)
     x = tb.to_tensor(runs, cuda_device)
     c = tb.to_tensor(counts, cuda_device)
     for pb in sorted({tb.rid_pack_bits(k), 16}):
+        got = tb.merge_runs_prefix32_packed_batch_kernel(v, c1, pb)
+        assert torch.equal(got, tb.prefix32_packed_plain(v, c1, pb))
         got = tb.merge_runs_prefix64_packed_batch_kernel(x, c, pb)
         assert torch.equal(got, tb.prefix64_packed_plain(x, c, pb))
     got = tb.merge_runs_prefix_kernel(x[0], c[0], out_rows)
     assert torch.equal(got, tb.prefix_top_plain(x[0], c[0], out_rows))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", K4_SHAPES + [(8, 1 << 15), (8, 1 << 17)])
+def test_cuda_k4_schedule_equals_plain(cuda_device, k, p):
+    """K4 on K5's schedule (csrc/bitonic.cu k5_merge_rows, the index
+    epilogue) bit-equal to the network: full 8-word ties, sentinel
+    tails, runs below, at and above the 1024-row tile, the main path's
+    (8, 2^15) and N = 2^20, past tile^2/2, where the last level runs its
+    strides of a tile or more one launch each."""
+    st = tb.to_tensor(_stacks(np.random.default_rng(600 + k * p), k, p),
+                      cuda_device)
+    before = tb.launches["K4"]
+    got = tb.merge_runs_perm_kernel(st)
+    assert tb.launches["K4"] == before + 1
+    for g, w in zip(got, tb.perm_plain(st)):
+        assert torch.equal(g, w)
     torch.cuda.synchronize()
