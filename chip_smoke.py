@@ -20,7 +20,13 @@ Phases (any failure exits non-zero):
                 PyTorch version on the card; K1, K2 and K3 (the merge
                 path) also on edge shapes — full key ties, valid keys
                 of 0xFFFFFFFF, one run holding every row, all counts 0,
-                K up to 256, J = 8 with empty slots, odd out_rows (K8c's
+                K up to 256, J = 8 with empty slots, odd out_rows; K6
+                (the merge path over J jobs) on out_rows off the tile
+                and 0, K of 1, 2 and 8, runs below the tile, empty jobs
+                and 0xFFFFFFFF prefixes; K9b on an empty bucket, one
+                bucket overflowing, no and only valid rows, m and
+                capacity off multiples of 4, a stack off a 16-byte
+                boundary, n_dev 2 and 8, and its host parts (K8c's
                 sum within n * 2^-52 * sum|x| of math.fsum); K5 also at
                 the mesh's final sort (524288, 9), and on edge shapes (N
                 of 1 to two tiles, long runs with P > 1, the per-stage
@@ -466,6 +472,163 @@ def _k8_edges(torch, np, Q, rng, odd, bit_err):
     return parts
 
 
+def _counts_of(np, gen, kind, j, k, p):
+    """Valid rows per run, (j, k) u32, of a merge-path edge case:
+    "zero" all 0, "one_run" every row in run 1 of each job, "zero_job"
+    ragged with job j // 2 empty, "empty_slots" ragged with every odd
+    job empty, "rand" ragged (run (0, 0) empty, the last run full)."""
+    if kind == "zero":
+        return np.zeros((j, k), np.uint32)
+    if kind == "one_run":
+        c = np.zeros((j, k), np.uint32)
+        c[:, min(1, k - 1)] = p
+        return c
+    c = gen.integers(0, p + 1, size=(j, k)).astype(np.uint32)
+    c[0, 0] = 0
+    c[-1, -1] = p
+    if kind == "empty_slots":
+        c[1::2] = 0
+    if kind == "zero_job":
+        c[j // 2] = 0
+    return c
+
+
+def _k6_edges(torch, np, B, rng, bit_err):
+    """K6 (the merge path's kTop epilogue over J > 1 jobs) off the
+    main-path shape, on the card, each bit-equal to its plain version
+    (the network): out_rows off the 4096-row tile, out_rows 0, K = 1
+    (the epilogue alone), K = 2 (no work half), runs below the tile, a
+    job whose counts are all 0, every job empty, valid prefixes of
+    0xFFFFFFFF in both words (tied with the padding), K = 8 (two work
+    halves) with empty jobs, one run holding every row.  Returns the
+    cases' names."""
+    dev = torch.device("cuda")
+    T = lambda a: B.to_tensor(a, dev)  # noqa: E731
+    # (name, J, K, P, hi, counts, out_rows, salt)
+    cases = [
+        ("out_rows_off_tile", 8, 4, 8192, 1, "rand", 5 * 4096 + 1000, 0.01),
+        ("out_rows_off_tile_big", 8, 4, 32768, 2, "rand", 70001, 0.01),
+        ("out_rows_0", 3, 4, 4096, 2, "rand", 0, 0.01),
+        ("k1", 4, 1, 8192, 2, "rand", 8192, 0.01),
+        ("k1_short", 4, 1, 4096, 2, "rand", 100, 0.01),
+        ("k2", 8, 2, 8192, 1, "rand", 16384 - 3, 0.01),
+        ("p_below_tile", 8, 8, 64, 3, "rand", 300, 0.01),
+        ("p_8", 5, 4, 8, 2, "rand", 20, 0.01),
+        ("zero_job", 8, 4, 8192, 1, "zero_job", 3 * 8192, 0.01),
+        ("all_zero", 4, 4, 1024, 1, "zero", 4096, 0.01),
+        ("ff_prefixes", 8, 4, 8192, 2, "rand", 20000, 0.5),
+        ("k8_empty_jobs", 4, 8, 4096, 1, "empty_slots", 30000, 0.01),
+        ("one_run", 2, 4, 8192, 1, "one_run", 32768, 0.01),
+    ]
+    names = []
+    for name, j, k, p, hi, kind, out_rows, salt in cases:
+        c = _counts_of(np, rng, kind, j, k, p)
+        pre = T(_sorted_runs(np, rng, j, k, p, 2, hi, c, salt))
+        cnt = T(c)
+        if bit_err("K6", B.merge_runs_prefix_batch_kernel(pre, cnt, out_rows),
+                   B.prefix_top_batch_plain(pre, cnt, out_rows)):
+            raise AssertionError(f"K6 edge {name} (J={j}, K={k}, P={p}, "
+                                 f"out_rows={out_rows}): differs")
+        names.append(name)
+    torch.cuda.synchronize()
+    log(f"K6 merge-path edges: {len(names)} cases bit-equal to the network")
+    return names
+
+
+def _k9b_edges(torch, np, B, D, rng, bit_err):
+    """K9b off the main-path data, on the card, send buffer and
+    overflow word bit-equal to the plain version: an empty bucket
+    (equal splitters), every valid row in one bucket (overflow), no
+    valid row, no sentinel row, m and capacity not multiples of 4, the
+    stack one row into its storage (the source off a 16-byte boundary),
+    n_dev = 2 and n_dev = 8.  Returns the cases' names."""
+    dev = torch.device("cuda")
+    words = np.array([0, 5, 0x7FFFFFFF, 0x80000000, 0x80000001,
+                      0xC0000000, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint64)
+
+    def stack(m, n_valid, k0_words):
+        loc = rng.integers(0, 1 << 32, size=(m, 9), dtype=np.uint64)
+        loc = loc.astype(np.uint32)
+        loc[:, 0] = rng.choice(k0_words, size=m)
+        loc[:, 4] = rng.integers(1, 64, size=m).astype(np.uint32)
+        loc[n_valid:] = 0xFFFFFFFF
+        loc[:n_valid] = loc[:n_valid][np.lexsort(loc[:n_valid, :8].T[::-1])]
+        return B.to_tensor(loc, dev)
+
+    spl4 = np.array([5, 0x80000000, 0xC0000000], np.uint32)
+    m = 131072
+    # (name, n_dev, local, splitters, capacity)
+    cases = [
+        ("empty_bucket", 4, stack(m, m - 3000, words),
+         np.array([5, 5, 0x80000000], np.uint32), 65568),
+        ("one_bucket_overflow", 4, stack(m, m - 100, words[3:4]), spl4,
+         65568),
+        ("nvalid_0", 4, stack(m, 0, words), spl4, 65568),
+        ("nvalid_m", 4, stack(m, m, words), spl4, 65568),
+        ("m_capacity_odd", 4, stack(m - 1, m - 2001, words), spl4, 65567),
+        ("view_off_16b", 4, stack(m + 1, m - 999, words)[1:], spl4, 65569),
+        ("n_dev_2", 2, stack(m, m - 3000, words),
+         np.array([0x80000000], np.uint32), 131073),
+        ("n_dev_8", 8, stack(m, m - 3000, words),
+         np.sort(rng.choice(words, size=7)).astype(np.uint32), 32801),
+    ]
+    for name, n_dev, local, spl, cap in cases:
+        s_t = B.to_tensor(spl, dev)
+        if bit_err("K9b", D.bucket_scatter_kernel(local, s_t, cap, n_dev),
+                   D.bucket_scatter_plain(local, s_t, cap, n_dev)):
+            raise AssertionError(f"K9b edge {name}: send buffers or "
+                                 "overflow differ")
+    torch.cuda.synchronize()
+    log(f"K9b edges: {len(cases)} cases bit-equal to the plain version")
+    return [c[0] for c in cases]
+
+
+def _k9b_host_parts(torch, D, local, spl, cap, n_dev):
+    """What one K9b call at the wide shape spends on the host, part by
+    part (µs per call, 500 calls each): the checks, the wrapper's two
+    allocations, the device guard, the stream lookup, the ctypes launch,
+    the counter and the whole call."""
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.ops.bitonic import _stream
+
+    words = n_dev * cap * 9
+    send = torch.empty(words + 1, dtype=torch.int32, device=local.device)
+    fn = _cuda.dist_lib().dbeel_dist_bucket_scatter
+    stream = _stream(local)
+
+    def check():
+        D._check("local", local, (local.shape[0], 9))
+        D._check("splitters", spl, (n_dev - 1,))
+        D._device_kind(local, spl)
+
+    def two_buffers():
+        return (torch.empty((n_dev, cap, 9), dtype=torch.int32,
+                            device=local.device),
+                torch.empty(1, dtype=torch.int32, device=local.device))
+
+    def guard():
+        with torch.cuda.device(local.device):
+            pass
+
+    def launch():
+        fn(local.data_ptr(), local.shape[0], spl.data_ptr(), n_dev, cap,
+           send.data_ptr(), send.data_ptr() + words * 4, stream)
+
+    parts = {
+        "check": check,
+        "empty_two_buffers": two_buffers,
+        "device_guard": guard,
+        "stream": lambda: _stream(local),
+        "ctypes_launch": launch,
+        "count": lambda: _cuda.count("K9b"),
+        "whole_call": lambda: D.bucket_scatter_kernel(local, spl, cap, n_dev),
+    }
+    parts = {k: _host_us(torch, f, 500) for k, f in parts.items()}
+    log("K9b host parts (us per call): "
+        + ", ".join(f"{k} {us:.3f}" for k, us in parts.items()))
+    return parts
+
+
 def _merge_path_edges(torch, np, B, rng, bit_err):
     """K1, K2 and K3 (csrc/merge_path.cu) off the main-path shapes, on
     the card, each bit-equal to its plain version (the network): every
@@ -479,21 +642,6 @@ def _merge_path_edges(torch, np, B, rng, bit_err):
     cases."""
     dev = torch.device("cuda")
     T = lambda a: B.to_tensor(a, dev)  # noqa: E731
-
-    def counts_of(kind, j, k, p, gen=rng):
-        if kind == "zero":
-            return np.zeros((j, k), np.uint32)
-        if kind == "one_run":  # run 1 of each job holds every row
-            c = np.zeros((j, k), np.uint32)
-            c[:, min(1, k - 1)] = p
-            return c
-        c = gen.integers(0, p + 1, size=(j, k)).astype(np.uint32)
-        c[0, 0] = 0
-        c[-1, -1] = p
-        if kind == "empty_slots":
-            c[1::2] = 0
-        return c
-
     # (J, K, P, hi, counts, pack_bits or None for rid_pack_bits(K), salt)
     packed = [
         (1, 2, 8192, 1, "rand", None, 0.01),
@@ -515,7 +663,7 @@ def _merge_path_edges(torch, np, B, rng, bit_err):
          B.merge_runs_prefix32_packed_batch_kernel, B.prefix32_packed_plain),
     ):
         for j, k, p, hi, kind, pb, salt in packed:
-            c = counts_of(kind, j, k, p, gen)
+            c = _counts_of(np, gen, kind, j, k, p)
             ops = T(_sorted_runs(np, gen, j, k, p, words, hi, c, salt))
             cnt = T(c)
             pb = pb or B.rid_pack_bits(k)
@@ -538,7 +686,7 @@ def _merge_path_edges(torch, np, B, rng, bit_err):
         (16, 2048, 1, "rand", 16 * 2048 - 1),
     ]
     for k, p, hi, kind, out_rows in top:
-        c = counts_of(kind, 1, k, p)
+        c = _counts_of(np, rng, kind, 1, k, p)
         pre = T(_sorted_runs(np, rng, 1, k, p, 2, hi, c)[0])
         cnt = T(c[0])
         if bit_err("K3", B.merge_runs_prefix_kernel(pre, cnt, out_rows),
@@ -639,7 +787,8 @@ def phase_kernels(torch, np):
                 g, w = g.view(torch.int64), w.view(torch.int64)
             else:
                 g, w = B._u64(g), B._u64(w)
-            err = max(err, int((g - w).abs().max().item()))
+            if g.numel():  # an empty output (out_rows 0) matches its shape
+                err = max(err, int((g - w).abs().max().item()))
         return err
 
     def measure(kernel, plain, nbytes, ops):
@@ -877,17 +1026,22 @@ def phase_kernels(torch, np):
     out6 = min(k * p, ((rows6 + 65535) >> 16) << 16)
     key6 = B._u64(pre6[..., 0]) << 32 | B._u64(pre6[..., 1])
     key6 = as_signed(key6).reshape(j, -1)
-    stages6 = sum(range(p.bit_length(), (k * p).bit_length()))
     record(
         "K6", "merge_runs_prefix_batch_kernel",
-        "dbeel_tpu/ops/bitonic.py:284",
+        "dbeel_tpu/ops/bitonic.py:284 (body _prefix_merge_body :136)",
         lambda: B.merge_runs_prefix_batch_kernel(pre6, cnt6, out6),
         lambda: B.prefix_top_batch_plain(pre6, cnt6, out6),
         lambda: torch.sort(key6, dim=1, stable=True),
         pre6.numel() * 4 + cnt6.numel() * 4 + j * out6 * 4,
-        j * k * p // 2 * stages6 * 3,
+        j * k * p * (k.bit_length() - 1) * 3,
+        source="dbeel_tpu_torch/csrc/merge_path.cu",
     )
+    # The merge path: one launch a level, the last stopping at out_rows.
+    _expect_launches(results[-1], k.bit_length() - 1)
     del pre6, key6
+    results[-1]["edge_cases"] = _k6_edges(
+        torch, np, B, np.random.default_rng(6), bit_err
+    )
 
     # K7 (9, 2^19): the mesh_wide merge's columns padded to a power of
     # two — random words with most first words >= 0x80000000, a block
@@ -982,6 +1136,11 @@ def phase_kernels(torch, np):
         module="dist", wrapper="parallel/dist_merge.py",
     )
     log(f"K9b: the overflow check dropped {over9} rows at capacity 20000")
+    k9b = results[-1]
+    k9b["host_parts_us"] = _k9b_host_parts(torch, D, local9, spl9, cap9,
+                                           n_dev)
+    k9b["edge_cases"] = _k9b_edges(torch, np, B, D,
+                                   np.random.default_rng(9), bit_err)
     del local9, k0_9
 
     # K8a-K8d at the scan phase's shape: one staged float64 column of

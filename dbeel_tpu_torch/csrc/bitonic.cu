@@ -1,45 +1,41 @@
 // Bitonic merge network over K sorted runs — the compaction merge and
-// flush sort kernels of dbeel_tpu_torch (K4-K7 of PERF.md), for Hopper
-// (sm_90a).  K1, K2 and K3 are merge-path merges (csrc/merge_path.cu).
+// flush sort kernels of dbeel_tpu_torch (K4, K5 and K7 of PERF.md), for
+// Hopper (sm_90a).  K1, K2, K3 and K6 are merge-path merges
+// (csrc/merge_path.cu).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py:
 //   K4 merge_runs_perm_kernel                    (bitonic.py:104, :81)
 //   K5 merge_runs_kernel / sort_stack_kernel     (bitonic.py:95, :114)
-//   K6 merge_runs_prefix_batch_kernel            (bitonic.py:284)
 //   K7 _sort_kernel + _same_key_mask    (dbeel_tpu/ops/merge.py:35, :42)
 //
-// Data: a flat array of N = J*K*P rows of W u32 words (W = 3, 9),
-// compared lexicographically on the first NCMP words (3, 8).  The
-// network is the JAX one exactly, not only its sorted result: per level
-// l (runs of P_l = P << l rows), each odd run is reversed (JAX's
-// concat(a, b[::-1]), _merge_level :70) and half-cleaner stages with
-// strides P_l, P_l/2, ..., 1 swap a pair iff lex_gt(lo, hi) is strictly
-// true (_bitonic_to_sorted :53).  Following the network bit for bit keeps
-// the output equal even where rows tie on every compared word (K4 with
-// long keys sharing a 16-byte prefix, a length, a ts and a source).  The
-// reversal is fused into the first stage of each level: one thread owns
-// the two pairs (t, h-1-t) a reversal would exchange, so no pass is
-// spent on it.  The batch axis J of K6 needs nothing: runs are
-// pow2-sized and the levels stop at K*P rows, so no level's pair ever
-// crosses a batch boundary.  K5's flush sort is the P = 1 case (every
-// row its own run): a one-row run reverses to itself, so its first
-// level's flip is a plain stage.  K4 is K5's network with another
-// epilogue: the sorted rows' word 8 and the same-key flags, not the
-// rows.  K7 is the same P = 1 network on nine separate operand columns:
-// lax.sort of 9 u32 operands on 8 keys, with a staging pass from columns
-// to rows before it and a column epilogue (plus _same_key_mask's flags)
-// after it.
+// Data: a flat array of N = K*P rows of 9 u32 words, compared
+// lexicographically on the first 8.  The network is the JAX one exactly,
+// not only its sorted result: per level l (runs of P_l = P << l rows),
+// each odd run is reversed (JAX's concat(a, b[::-1]), _merge_level :70)
+// and half-cleaner stages with strides P_l, P_l/2, ..., 1 swap a pair iff
+// lex_gt(lo, hi) is strictly true (_bitonic_to_sorted :53).  Following
+// the network bit for bit keeps the output equal even where rows tie on
+// every compared word (K4 with long keys sharing a 16-byte prefix, a
+// length, a ts and a source).  The reversal is fused into the first
+// stage of each level: one thread owns the two pairs (t, h-1-t) a
+// reversal would exchange, so no pass is spent on it.  K5's flush sort
+// is the P = 1 case (every row its own run): a one-row run reverses to
+// itself, so its first level's flip is a plain stage.  K4 is K5's
+// network with another epilogue: the sorted rows' word 8 and the
+// same-key flags, not the rows.  K7 is the same P = 1 network on nine
+// separate operand columns: lax.sort of 9 u32 operands on 8 keys, with a
+// staging pass from columns to rows before it and a column epilogue
+// (plus _same_key_mask's flags) after it.
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
-// integer ops each, far under the card's integer rate.  For K6 and K7
-// (run_network) this first version runs strides >= TILE/2 as one
-// global-memory launch per stage and every smaller stride of a level in
-// one shared-memory tile launch (TILE rows of W words, <= 36 KiB), so a
-// level costs (log2(2 P_l) - log2(TILE) + 2) passes over the rows.  K4
-// and K5 run the same stages in two passes a level ("K4 and K5: the same
-// network in fewer passes" below).  None is near the bound yet; PERF.md
-// keeps their times.
+// integer ops each, far under the card's integer rate.  K7 (run_network)
+// runs strides >= TILE/2 as one global-memory launch per stage and every
+// smaller stride of a level in one shared-memory tile launch (TILE rows
+// of 9 words, 36 KiB), so a level costs (log2(2 P_l) - log2(TILE) + 2)
+// passes over the rows.  K4 and K5 run the same stages in two passes a
+// level ("K4 and K5: the same network in fewer passes" below).  None is
+// near the bound yet; PERF.md keeps their times.
 //
 // Interface: plain C, launched on the caller's stream, no allocation
 // (the wrapper passes the work buffer), returns cudaGetLastError().
@@ -54,10 +50,6 @@ constexpr int kThreads = 256;
 
 template <int W>
 struct Tile;
-template <>
-struct Tile<3> {
-  static constexpr uint32_t rows = 2048;  // 24 KiB
-};
 template <>
 struct Tile<9> {
   static constexpr uint32_t rows = 1024;  // 36 KiB
@@ -198,37 +190,6 @@ __global__ void tile_kernel(uint32_t* rows, uint32_t tile, uint32_t s_start,
     rows[off + e] = sm[e];
 }
 
-// Stage the rows: copy `src_w` words per row from the operand and, when
-// src_w < W, build the index column on the device (bitonic.py :140-146): iota (run << logP) | pos for valid rows, SENTINEL past the
-// run's count.  Row i = ((j * K) + r) * P + p.
-template <int W>
-__global__ void stage_rows_kernel(const uint32_t* src, int src_w,
-                                  const uint32_t* counts, uint32_t log_k,
-                                  uint32_t log_p, uint64_t n,
-                                  uint32_t* rows) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  for (int c = 0; c < src_w; ++c) rows[i * W + c] = src[i * src_w + c];
-  if (src_w < W) {
-    const uint32_t p = (uint32_t)(i & ((1ull << log_p) - 1));
-    const uint64_t jr = i >> log_p;  // j * K + r
-    const uint32_t r = (uint32_t)(jr & ((1ull << log_k) - 1));
-    rows[i * W + W - 1] = p < counts[jr] ? ((r << log_p) | p) : kSentinel;
-  }
-}
-
-// K6 epilogue: per job j, the index column of its first out_rows
-// rows, out[j, r] = rows[j * K*P + r][W-1].
-template <int W>
-__global__ void top_rows_kernel(const uint32_t* rows, uint64_t rows_per_j,
-                                uint64_t out_rows, uint64_t total,
-                                uint32_t* out) {
-  const uint64_t g = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const uint64_t j = g / out_rows;
-  out[g] = rows[(j * rows_per_j + g % out_rows) * W + W - 1];
-}
-
 // K7 staging: nine separate operand columns (column c at cols + c*n)
 // into rows of nine words.
 __global__ void cols_to_rows_kernel(const uint32_t* cols, uint64_t n,
@@ -268,7 +229,8 @@ inline uint32_t log2_exact(uint64_t v) {
   return l;
 }
 
-// log2(K) merge levels over n = J*K*P rows (K, P powers of two).
+// log2(K) merge levels over n = K*P rows (K, P powers of two); K7 runs
+// it with P = 1.
 template <int W, int NCMP>
 cudaError_t run_network(uint32_t* rows, uint64_t n, uint64_t k, uint64_t p,
                         cudaStream_t st) {
@@ -534,29 +496,6 @@ int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
 }  // namespace
 
 extern "C" {
-
-// K6: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out (J, out_rows) u32,
-// per job packed (run << logP) | pos with its iota restarting at 0 (the
-// JAX vmap of K3's body); work holds J*K*P*3 u32.  Bound: bytes (the
-// prefixes read once, J*out_rows words written).  Counted as "K6" by
-// ops/bitonic.py merge_runs_prefix_batch_kernel.
-int dbeel_bitonic_prefix_top_batch(const uint32_t* prefixes,
-                                   const uint32_t* counts, uint32_t j,
-                                   uint32_t k, uint32_t p, uint32_t out_rows,
-                                   uint32_t* work, uint32_t* out,
-                                   void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint64_t n = (uint64_t)j * k * p;
-  stage_rows_kernel<3><<<blocks_for(n), kThreads, 0, st>>>(
-      prefixes, 2, counts, log2_exact(k), log2_exact(p), n, work);
-  cudaError_t err = run_network<3, 3>(work, n, k, p, st);
-  if (err != cudaSuccess) return (int)err;
-  const uint64_t total = (uint64_t)j * out_rows;
-  if (total)
-    top_rows_kernel<3><<<blocks_for(total), kThreads, 0, st>>>(
-        work, (uint64_t)k * p, out_rows, total, out);
-  return (int)cudaGetLastError();
-}
 
 // K4: stacks (K,P,9) u32 -> idx (K*P,) u32, the sorted rows' word 8, +
 // same (K*P,) bytes 0/1; work holds K*P*9 u32.  K5's schedule with the

@@ -1,17 +1,19 @@
-// Merge-path merge of sorted runs — K1, K2 and K3 of dbeel_tpu_torch
+// Merge-path merge of sorted runs — K1, K2, K3 and K6 of dbeel_tpu_torch
 // (PERF.md) for Hopper (sm_90a).
 //
 // Replaces the jax.jit compare-exchange networks of dbeel_tpu/ops/bitonic.py
 //   K1 merge_runs_prefix32_packed_batch_kernel  (bitonic.py:235, body :202)
 //   K2 merge_runs_prefix64_packed_batch_kernel  (bitonic.py:251, body :218)
 //   K3 merge_runs_prefix_kernel / _prefix_kernel_from_runs (:153, :379)
+//   K6 merge_runs_prefix_batch_kernel (:284; K3's body _prefix_merge_body
+//      :136 vmapped over J coalesced compaction jobs)
 // which csrc/bitonic.cu ran stage for stage (one global pass per large
-// stride, 26-32 launches a call).  Here each level of the pairwise merge
-// is one launch and one pass: K = 8 runs take 3.
+// stride, 19-32 launches a call).  Here each level of the pairwise merge
+// is one launch and one pass: K = 8 runs take 3, K6's K = 4 takes 2.
 //
 // Why the order may differ from the network's and the bits may not.
 // Every row is (key words..., idx) and every word is compared (W ==
-// NCMP): K1's (v, idx), K2's and K3's (k0, k1, idx).  A valid row's idx
+// NCMP): K1's (v, idx), K2's, K3's and K6's (k0, k1, idx).  A valid row's idx
 // = (run << logP) | pos is unique; a padding row (pos >= count) is
 // SENTINEL in every word.  So two rows tie on every compared word only
 // if both are padding, and then they are bit-identical.  On sorted runs
@@ -23,8 +25,11 @@
 // in the carried word) have no such freedom and keep the network's
 // order (csrc/bitonic.cu).
 //
-// Precondition (the caller's, as for the network): each run sorted on
-// its compared words, padding rows SENTINEL in every key word.  Unsorted
+// Precondition (the caller's; the network needed only the padding):
+// each run sorted on its compared words, padding rows SENTINEL in every
+// key word.  SSTable runs are sorted by key and the 8-byte big-endian
+// prefix is monotone in the key, so the staging of every caller meets
+// it (ops/bitonic.py stage_prefixes, server/coalescer.py pack_jobs).  Unsorted
 // input gives an unspecified order but never an access out of bounds.
 // K2/K3's operand is 8-byte aligned (a row's key is one 8-byte load;
 // the wrapper checks), K1's 4-byte (an int32 tensor always is).
@@ -53,11 +58,19 @@
 // (ping-pong); the last level writes only the epilogue — K1 and K2 the
 // run ids, packed pack_bits to a word in shared memory before the store, K3
 // the idx of the first out_rows rows, with no block launched past them.
-// The batch axis J is more blocks.
+// The batch axis J is more blocks: a block's job is blockIdx.x /
+// tiles_per_job, every row and output offset adds the job's base, and
+// kTop stops each job at its own out_rows (K6; K3 is J = 1).  Nothing
+// else depends on J: out_rows of 0 launches nothing, K = 1 and K = 2
+// are one level (the epilogue; no work half), runs below the tile shrink
+// it to one pair, and a job whose counts are all 0 merges SENTINEL rows,
+// which tie on every word and come out as SENTINEL idx.
 //
 // Bound: bytes.  The operand is read once and the epilogue written once
 // (K2 at (4, 8, 131072, 2): 32 MiB + 2 MiB, 10.6 us at 3.35 TB/s; K1 at
-// (4, 8, 131072): 16 MiB + 2 MiB, 5.6 us).  Each
+// (4, 8, 131072): 16 MiB + 2 MiB, 5.6 us; K6 at (8, 4, 131072, 2) with
+// 327680 rows out a job: 32 MiB + 10 MiB, 13.1 us; K6's and K3's bound
+// follows out_rows).  Each
 // intermediate level adds a write and a read of 4 bytes a row and a
 // fetch of its 4- or 8-byte key; the comparisons are a few integer ops per
 // row and level.  What holds it above the bound (PERF.md): each level
@@ -482,9 +495,11 @@ int dbeel_merge_path_prefix64_packed(const uint32_t* prefixes,
                        work, out, (cudaStream_t)stream);
 }
 
-// K3 over J jobs: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out
+// K3 and K6: prefixes (J,K,P,2) u32, counts (J,K) u32 -> out
 // (J, out_rows) u32, per job the packed (run << logP) | pos of its
-// first out_rows merged rows; work as for K2.  K3 is J = 1.
+// first out_rows merged rows; work as for K2.  Counted as "K3" (J = 1)
+// by ops/bitonic.py merge_runs_prefix_kernel and as "K6" by
+// merge_runs_prefix_batch_kernel.
 int dbeel_merge_path_prefix_top(const uint32_t* prefixes,
                                 const uint32_t* counts, uint32_t j,
                                 uint32_t k, uint32_t p, uint32_t out_rows,

@@ -2,11 +2,11 @@
 
 Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
 a shared library with a plain C interface, loaded with ctypes — one
-library per source (``bitonic.cu``: the merge networks K4-K7;
-``merge_path.cu``: the merge-path merges K1-K3; ``query.cu``: the
-filter kernels K8; ``dist.cu``: the sample sort's splitters and bucket
-scatter K9a/K9b), so the builds run side by side
-and a change to one source rebuilds only its library.  A build runs at
+library per source (``bitonic.cu``: the merge networks K4, K5 and K7;
+``merge_path.cu``: the merge-path merges K1-K3 and K6; ``query.cu``:
+the filter kernels K8; ``dist.cu``: the sample sort's splitters and
+bucket scatter K9a/K9b), so the builds run side by side and a change
+to one source rebuilds only its library.  A build runs at
 first use — never at import, so the CPU tests import this module on
 machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed in
 ``.gitignore``), under a name carrying the source's hash so a stale
@@ -145,14 +145,10 @@ def _bind_bitonic(handle: ctypes.CDLL) -> None:
     handle.dbeel_bitonic_merge_rows.argtypes = [
         vp, u32, u32, vp, vp, vp, vp,
     ]
-    handle.dbeel_bitonic_prefix_top_batch.argtypes = [
-        vp, vp, u32, u32, u32, u32, vp, vp, vp,
-    ]
     handle.dbeel_bitonic_sort_dedup_cols.argtypes = [vp, u32, vp, vp, vp, vp]
     for fn in (
         handle.dbeel_bitonic_perm,
         handle.dbeel_bitonic_merge_rows,
-        handle.dbeel_bitonic_prefix_top_batch,
         handle.dbeel_bitonic_sort_dedup_cols,
     ):
         fn.restype = ctypes.c_int

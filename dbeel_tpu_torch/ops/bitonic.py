@@ -6,11 +6,11 @@ each pairing neighbouring runs (the odd one reversed, so the pair is a
 bitonic sequence) and sorting the pair with half-cleaner stages of
 strides P_l, P_l/2, ..., 1.  ``dbeel_tpu/ops/bitonic.py`` runs it as
 jax.jit programs on a TPU; here the six networks on the storage path
-are CUDA kernels written for Hopper — K4-K6 the network stage for
-stage (``csrc/bitonic.cu``; K4 and K5 with their stages grouped into
-two passes a level), K1-K3 a merge-path merge
-(``csrc/merge_path.cu``), which may compare rows in another order
-because every word of their rows is compared (the source's note):
+are CUDA kernels written for Hopper — K4 and K5 the network stage for
+stage (``csrc/bitonic.cu``, with the stages grouped into two passes a
+level), K1-K3 and K6 a merge-path merge (``csrc/merge_path.cu``), which
+may compare rows in another order because every word of their rows is
+compared (the source's note):
 
   K1 merge_runs_prefix32_packed_batch_kernel — pipeline, 1-word operand
   K2 merge_runs_prefix64_packed_batch_kernel — pipeline, exact 2 words
@@ -373,16 +373,34 @@ def merge_runs_prefix_kernel(
         raise ValueError(f"out_rows {out_rows} outside [0, {k * p}]")
     if _device_kind(prefixes, counts) == "cpu":
         return prefix_top_plain(prefixes, counts, out_rows)
+    return _prefix_top_launch(
+        prefixes[None], counts[None], out_rows,
+        "merge_runs_prefix_kernel", "K3",
+    )[0]
+
+
+def _prefix_top_launch(
+    prefixes: torch.Tensor,  # (J, K, P, 2) u32 bits on the card
+    counts: torch.Tensor,  # (J, K)
+    out_rows: int,
+    name: str,
+    counter: str,
+) -> torch.Tensor:
+    """K3's and K6's launch: dbeel_merge_path_prefix_top over J jobs →
+    (J, out_rows); counts one launch under ``counter``."""
+    j, k, p, _ = prefixes.shape
     _check_rows8("prefixes", prefixes)
-    out = torch.empty(out_rows, dtype=torch.int32, device=prefixes.device)
-    work = _merge_path_work(1, k, p, prefixes.device)
+    out = torch.empty(
+        (j, out_rows), dtype=torch.int32, device=prefixes.device
+    )
+    work = _merge_path_work(j, k, p, prefixes.device)
     with torch.cuda.device(prefixes.device):
         rc = _cuda.merge_path_lib().dbeel_merge_path_prefix_top(
-            prefixes.data_ptr(), counts.data_ptr(), 1, k, p, out_rows,
+            prefixes.data_ptr(), counts.data_ptr(), j, k, p, out_rows,
             _ptr(work), out.data_ptr(), _stream(prefixes),
         )
-    _cuda.check(rc, "merge_runs_prefix_kernel")
-    _cuda.count("K3")
+    _cuda.check(rc, name)
+    _cuda.count(counter)
     return out
 
 
@@ -467,11 +485,16 @@ def merge_runs_prefix_batch_kernel(
 ) -> torch.Tensor:
     """K6 — replaces dbeel_tpu/ops/bitonic.py:284
     merge_runs_prefix_batch_kernel: K3's merge over J independent jobs
-    (each job's index restarts at 0) in one launch → (J, out_rows)
-    packed ``(run << logP) | pos``.  Bound (bytes): the prefixes read
-    once plus J*out_rows words written — at the coalesced shape
-    (8, 4, 131072, 2) with 393216 rows out, 32 MiB + 12 MiB, about
-    13.8 µs at 3.35 TB/s."""
+    (each job's index restarts at 0) in one call → (J, out_rows)
+    packed ``(run << logP) | pos``.  Each run must be sorted on its two
+    words, with rows past its count SENTINEL in both (the network
+    needed only the padding; ``stage_prefixes`` meets both): then the
+    merge path (csrc/merge_path.cu, log2(K) launches, none past a job's
+    ``out_rows``: 2 at K = 4) gives the network's bits.  Bound (bytes):
+    the prefixes read once plus J*out_rows words written, so it
+    follows out_rows — at the coalesced shape (8, 4, 131072, 2) with
+    327680 rows out a job (chip_smoke.py's ragged counts, rounded up to
+    65536 rows), 32 MiB + 10 MiB, about 13.1 µs at 3.35 TB/s."""
     j, k, p, _ = prefixes.shape
     _check_runs(k, p)
     _check("prefixes", prefixes, (j, k, p, 2))
@@ -480,20 +503,9 @@ def merge_runs_prefix_batch_kernel(
         raise ValueError(f"out_rows {out_rows} outside [0, {k * p}]")
     if _device_kind(prefixes, counts) == "cpu":
         return prefix_top_batch_plain(prefixes, counts, out_rows)
-    out = torch.empty(
-        (j, out_rows), dtype=torch.int32, device=prefixes.device
+    return _prefix_top_launch(
+        prefixes, counts, out_rows, "merge_runs_prefix_batch_kernel", "K6"
     )
-    work = torch.empty(
-        j * k * p * 3, dtype=torch.int32, device=prefixes.device
-    )
-    with torch.cuda.device(prefixes.device):
-        rc = _cuda.lib().dbeel_bitonic_prefix_top_batch(
-            prefixes.data_ptr(), counts.data_ptr(), j, k, p, out_rows,
-            work.data_ptr(), out.data_ptr(), _stream(prefixes),
-        )
-    _cuda.check(rc, "merge_runs_prefix_batch_kernel")
-    _cuda.count("K6")
-    return out
 
 
 # ----------------------------------------------------------------------

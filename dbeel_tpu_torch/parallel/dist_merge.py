@@ -139,12 +139,18 @@ def bucket_scatter_kernel(
     """K9b — replaces the bucket/scatter step of dbeel_tpu/parallel/
     dist_merge.py:_per_device (:88-102): the sorted local rows laid
     out as the (n_dev, capacity, 9) send buffer, and the overflow
-    count (1,).  Bound (bytes): the local rows read once, the send
-    buffer written once — at m = 131072, capacity = 65568, n_dev = 4,
-    4.7 MB + 9.4 MB, about 4.2 µs at 3.35 TB/s."""
+    count (1,).  On the card one launch: a block per chunk of a
+    bucket's slot finds the bucket's run of rows by a warp-wide search
+    and copies it as one word range in 16-byte stores, then the
+    sentinel (csrc/dist.cu).  Bound (bytes): the local rows read once,
+    the send buffer written once — at m = 131072, capacity = 65568,
+    n_dev = 4, 4.7 MB + 9.4 MB, about 4.2 µs at 3.35 TB/s."""
     m = local.shape[0]
     if not 2 <= n_dev <= 192 or capacity < 1:
         raise ValueError(f"K9b: n_dev {n_dev}, capacity {capacity}")
+    if max(m, capacity) * NUM_COLS >= 1 << 32:
+        raise ValueError(f"K9b: {m} rows or capacity {capacity} past "
+                         "32-bit word offsets")
     _check("local", local, (m, NUM_COLS))
     _check("splitters", splitters, (n_dev - 1,))
     if _device_kind(local, splitters) == "cpu":

@@ -4,10 +4,15 @@ compaction decision (server/tasks.py) against dbeel_tpu's.
 The same seeded numpy inputs go through the JAX batch kernel (on the
 CPU backend) and the port on ``cpu`` tensors (K6's plain PyTorch
 version): outputs bit-equal with ragged counts, empty runs, one job and
-all-0xFF prefixes.  Concurrent trees on one coalescer meet in one
-launch and write files SHA-256-identical to dbeel_tpu's coalesced trees
-and to the heap merge.  The ``cuda`` cases hold the CUDA kernel against
-its plain version on a card and skip without one.
+all-0xFF prefixes, and the shapes the merge-path kernel meets in a
+batch (out_rows off the tile, out_rows 0, K of 1 and 2, runs shorter
+than a tile, a job with no rows).  ``pack_jobs`` stages real compaction
+jobs as the merge path needs them: every run sorted on its two prefix
+words, every row past its count SENTINEL in both.  Concurrent trees on
+one coalescer meet in one launch and write files SHA-256-identical to
+dbeel_tpu's coalesced trees and to the heap merge.  The ``cuda`` cases
+hold the CUDA kernel against its plain version on a card and skip
+without one.
 """
 
 import asyncio
@@ -37,18 +42,26 @@ from dbeel_tpu_torch.storage.sstable import SSTable as TSSTable
 SENT = 0xFFFFFFFF
 
 
-def _batch(rng, j, k, p, hi):
-    """(J, K, P, 2) sentinel-padded sorted prefix runs with ragged
-    counts, one empty run and 0xFFFFFFFF words inside valid rows."""
-    counts = rng.integers(0, p + 1, size=(j, k)).astype(np.uint32)
-    counts[0, 0] = 0
-    counts[-1, -1] = p
+def _batch(rng, j, k, p, hi, kind="rand", salt=0.1):
+    """(J, K, P, 2) sentinel-padded sorted prefix runs and their counts:
+    "rand" ragged with one empty run, "zero_job" also job J // 2 empty,
+    "one_run" every row in run 1 of each job; ``salt``, the share of
+    valid rows whose words are 0xFFFFFFFF."""
+    if kind == "one_run":
+        counts = np.zeros((j, k), dtype=np.uint32)
+        counts[:, min(1, k - 1)] = p
+    else:
+        counts = rng.integers(0, p + 1, size=(j, k)).astype(np.uint32)
+        counts[0, 0] = 0
+        counts[-1, -1] = p
+        if kind == "zero_job":
+            counts[j // 2] = 0
     pre = np.full((j, k, p, 2), SENT, dtype=np.uint32)
     for jj in range(j):
         for r in range(k):
             c = int(counts[jj, r])
             v = rng.integers(0, hi, size=(c, 2), dtype=np.uint64)
-            v[rng.random(c) < 0.1] = SENT
+            v[rng.random(c) < salt] = SENT
             pre[jj, r, :c] = v[np.lexsort(v.T[::-1])] if c else v
     return pre, counts
 
@@ -76,6 +89,37 @@ def test_prefix_batch_all_ff_prefixes():
     want = np.asarray(jb.merge_runs_prefix_batch_kernel(pre, counts, 32))
     got = tb.to_numpy(tb.merge_runs_prefix_batch_kernel(
         tb.to_tensor(pre, "cpu"), tb.to_tensor(counts, "cpu"), 32))
+    np.testing.assert_array_equal(got, want)
+
+
+# K6 on the merge path: the kTop epilogue over J > 1 jobs at the shapes
+# that stress it.  (name, J, K, P, out_rows, counts, salt): counts
+# "rand" ragged, "zero_job" one job with no rows, "one_run" every row in
+# run 1 of each job; salt, the share of valid rows whose prefix is
+# 0xFFFFFFFF in both words (tied with the padding on the key).
+K6_EDGES = [
+    ("out_rows_off_tile", 2, 4, 2048, 5000, "rand", 0.1),
+    ("out_rows_0", 3, 4, 64, 0, "rand", 0.1),
+    ("k1", 4, 1, 64, 40, "rand", 0.1),
+    ("k2_no_work_half", 3, 2, 128, 256, "rand", 0.1),
+    ("p_below_tile", 5, 8, 8, 50, "rand", 0.1),
+    ("zero_job", 4, 4, 32, 100, "zero_job", 0.1),
+    ("one_run", 3, 4, 64, 256, "one_run", 0.1),
+    ("all_ff_prefixes", 3, 4, 256, 1000, "rand", 0.5),
+]
+
+
+@pytest.mark.parametrize("case", K6_EDGES, ids=[c[0] for c in K6_EDGES])
+def test_prefix_batch_merge_path_edges_equal_reference(case):
+    """The port's K6 (its plain version here) equals dbeel_tpu's K6 on
+    JAX-CPU at every shape of the merge path's batch edge list."""
+    _, j, k, p, out_rows, kind, salt = case
+    rng = np.random.default_rng(j * 7919 + k * p + out_rows)
+    pre, counts = _batch(rng, j, k, p, 3, kind, salt)
+    want = np.asarray(jb.merge_runs_prefix_batch_kernel(pre, counts, out_rows))
+    got = tb.to_numpy(tb.merge_runs_prefix_batch_kernel(
+        tb.to_tensor(pre, "cpu"), tb.to_tensor(counts, "cpu"), out_rows))
+    assert got.shape == want.shape == (j, out_rows)
     np.testing.assert_array_equal(got, want)
 
 
@@ -122,6 +166,43 @@ def test_pack_jobs_equal_reference(tmp_dir):
     np.testing.assert_array_equal(got.counts, want.counts)
     for a, b in zip(got.bases, want.bases):
         np.testing.assert_array_equal(a, b)
+
+
+# Compaction jobs as the coalescer meets them: (base index, runs, keys
+# a run) per job; a job of 3 runs pads K = 4 with an empty run.
+PACK_SPECS = [
+    [(0, 2, 40), (100, 3, 25), (200, 1, 7)],
+    [(0, 3, 60), (300, 3, 5)],
+    [(0, 1, 1), (50, 4, 33), (90, 2, 17)],
+]
+
+
+def _packed(tmp_dir, specs):
+    idx = [_stage_tables(tmp_dir, b, r, n, b + 1) for b, r, n in specs]
+    return tco.pack_jobs([(*_load(tcol, TSSTable, tmp_dir, i), None)
+                          for i in idx])
+
+
+@pytest.mark.parametrize("spec", range(len(PACK_SPECS)))
+def test_pack_jobs_meets_merge_path_precondition(tmp_dir, spec):
+    """The merge path's precondition on real compaction jobs: every
+    staged run non-decreasing on (k0, k1), every row past its count
+    SENTINEL in both words — ragged counts, and K padded with empty
+    runs."""
+    specs = PACK_SPECS[spec]
+    got = _packed(tmp_dir, specs)
+    j, k, p, _ = got.prefixes.shape
+    assert (j, k, p) == (len(specs), got.k, got.p)
+    assert (got.counts == 0).any()  # K padded with empty runs
+    assert len(set(got.counts[got.counts > 0].tolist())) > 1  # ragged
+    for jj in range(j):
+        assert int(got.counts[jj].sum()) > 0
+        for r in range(k):
+            c = int(got.counts[jj, r])
+            run = got.prefixes[jj, r].astype(np.uint64)
+            key = run[:c, 0] << np.uint64(32) | run[:c, 1]
+            assert (key[1:] >= key[:-1]).all()
+            assert (got.prefixes[jj, r, c:] == SENT).all()
 
 
 async def _fill(tree, salt):
@@ -267,14 +348,41 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The card's cases: random batches, then both edge lists — K6_EDGES at
+# their own P and at P x 64 (runs of 512 to 131072 rows, many tiles a
+# job; out_rows scaled with them), and the packed compaction jobs.
+CUDA_K6_CASES = (
+    [("rand", (1, 1, 8, 8)), ("rand", (3, 4, 32, 100)),
+     ("rand", (2, 8, 64, 0)), ("rand", (8, 4, 4096, 16384))]
+    + [("edge", (c, scale)) for c in K6_EDGES for scale in (1, 64)]
+    + [("pack", spec) for spec in range(len(PACK_SPECS))]
+)
+
+
+def _cuda_case_id(kind, case):
+    if kind == "edge":
+        return f"edge-{case[0][0]}-x{case[1]}"
+    return f"{kind}-{case}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "j,k,p,out_rows",
-    [(1, 1, 8, 8), (3, 4, 32, 100), (2, 8, 64, 0), (8, 4, 4096, 16384)],
+    "kind,case", CUDA_K6_CASES,
+    ids=[_cuda_case_id(*c) for c in CUDA_K6_CASES],
 )
-def test_cuda_prefix_batch_equals_plain(cuda_device, j, k, p, out_rows):
-    rng = np.random.default_rng(700 + j * k * p)
-    pre, counts = _batch(rng, j, k, p, 1 << 12)
+def test_cuda_prefix_batch_equals_plain(cuda_device, tmp_dir, kind, case):
+    if kind == "rand":
+        j, k, p, out_rows = case
+        rng = np.random.default_rng(700 + j * k * p)
+        pre, counts = _batch(rng, j, k, p, 1 << 12)
+    elif kind == "edge":
+        (_, j, k, p, out_rows, ck, salt), scale = case
+        p, out_rows = p * scale, out_rows * scale
+        rng = np.random.default_rng(j * 7919 + k * p + out_rows)
+        pre, counts = _batch(rng, j, k, p, 1 << 12, ck, salt)
+    else:
+        batch = _packed(tmp_dir, PACK_SPECS[case])
+        pre, counts, out_rows = batch.prefixes, batch.counts, batch.out_rows
     x = tb.to_tensor(pre, cuda_device)
     c = tb.to_tensor(counts, cuda_device)
     assert torch.equal(

@@ -217,52 +217,181 @@ def _sorted_local(rng, m, n_valid, hi_words):
     return rows
 
 
-def _gather_formulation(local, splitters, capacity, n_dev):
-    """csrc/dist.cu's K9b design in numpy: binary-searched run starts,
-    each send word pulled from its source row."""
+def _warp_search(m, pred):
+    """csrc/dist.cu warp_search: the first row of [0, m) where ``pred``
+    fails, 32 probes a round.  Returns (row, rounds)."""
+    lo, hi, rounds = 0, m, 0
+    lanes = np.arange(32)
+    while lo < hi:
+        step = (hi - lo + 31) >> 5
+        probe = [x < hi and bool(pred(x)) for x in lo + lanes * step]
+        c = sum(probe)
+        assert all(probe[:c])  # pred holds on a prefix: its probes lead
+        if c == 0:
+            hi = lo
+        else:
+            top = lo + c * step
+            lo += (c - 1) * step + 1
+            hi = min(top, hi)
+        rounds += 1
+    assert rounds <= -(-m.bit_length() // 5) + 1
+    return lo, rounds
+
+
+def _kernel_model(local, splitters, capacity, n_dev):
+    """csrc/dist.cu's K9b in numpy.  Each bucket's run of rows comes
+    from the warp-wide searches (nvalid, starts[b], starts[b+1]); its
+    slot of capacity * 9 words is written as the head words before the
+    first 16-byte boundary (the send buffer starts on one), 16-byte
+    vectors and the tail words, a word being the run's next word while
+    the run lasts and the sentinel after it.  The overflow sums every
+    bucket's excess over the buckets' searched ends.  Asserts that
+    every slot word is written once and no load leaves the run."""
     m = local.shape[0]
-    n_valid = int(np.searchsorted(local[:, 4] == SENT, True))
-    starts = [0]
-    for s in splitters:
-        starts.append(min(n_valid, int(np.searchsorted(local[:, 0], s,
-                                                       side="right"))))
-    starts.append(n_valid)
-    send = np.full((n_dev, capacity, 9), SENT, dtype=np.uint32)
-    over = 0
+    flat = local.reshape(-1)
+    nvalid, _ = _warp_search(m, lambda r: local[r, 4] != SENT)
+
+    def end(b):
+        if b + 1 >= n_dev:
+            return m
+        return _warp_search(m, lambda r: local[r, 0] <= splitters[b])[0]
+
+    words = capacity * 9
+    send = np.zeros(n_dev * words, np.uint32)
+    writes = np.zeros(n_dev * words, np.int64)
+    over, prev = 0, 0
     for b in range(n_dev):
-        count = starts[b + 1] - starts[b]
-        over += max(0, count - capacity)
-        take = min(count, capacity)
-        send[b, :take] = local[starts[b]: starts[b] + take]
-    assert m >= n_valid
-    return send, np.array([over], dtype=np.uint32)
+        start = min(end(b - 1), nvalid) if b else 0
+        stop = max(start, min(end(b), nvalid))
+        e = max(prev, min(end(b), nvalid))
+        over += max(0, e - prev - capacity)
+        prev = e
+        copy = min(stop - start, capacity) * 9
+        base, src = b * words, start * 9
+        head = min(words, -base % 4)
+        nvec = (words - head) // 4
+        tail = head + 4 * nvec
+
+        def load(x):
+            if x >= copy:
+                return SENT
+            assert src + x < stop * 9
+            return flat[src + x]
+
+        def store(x, vals):
+            send[base + x: base + x + len(vals)] = vals
+            writes[base + x: base + x + len(vals)] += 1
+
+        for x in list(range(head)) + list(range(tail, words)):
+            store(x, [load(x)])
+        for v in range(nvec):
+            x = head + 4 * v
+            store(x, [load(x + i) for i in range(4)])
+    assert (writes == 1).all()
+    return send.reshape(n_dev, capacity, 9), np.array([over], np.uint32)
 
 
-@pytest.mark.parametrize("seed", range(6))
+def _jax_bucket_scatter(local, splitters, capacity, n_dev):
+    """The JAX body's bucket + scatter (dbeel_tpu/parallel/
+    dist_merge.py:88-102, inside _per_device's shard_map) on JAX-CPU."""
+    import jax.numpy as jnp
+
+    sent = jnp.uint32(SENT)
+    local = jnp.asarray(local)
+    splitters = jnp.asarray(splitters)
+    m = local.shape[0]
+    k0 = local[:, 0]
+    bucket = jnp.sum(k0[:, None] > splitters[None, :], axis=1)
+    valid = local[:, 4] != sent
+    counts = jnp.sum(
+        (bucket[:, None] == jnp.arange(n_dev)[None, :]) & valid[:, None],
+        axis=0,
+    )
+    starts = jnp.concatenate(
+        [jnp.zeros((1,), counts.dtype), jnp.cumsum(counts)[:-1]]
+    )
+    col = jnp.arange(m) - starts[bucket]
+    overflow = jnp.sum((col >= capacity) & valid).astype(jnp.uint32)
+    send = jnp.full((n_dev, capacity, 9), sent)
+    send = send.at[bucket, col].set(
+        jnp.where(valid[:, None], local, sent), mode="drop"
+    )
+    return np.asarray(send), np.asarray(overflow)[None]
+
+
+_K9_WORDS = np.array(
+    [0, 7, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xC0000000, SENT - 1, SENT],
+    dtype=np.uint64,
+)
+
+
+def _k9b_edge(name, rng):
+    """K9b's edge cases (chip_smoke.py phase 2 runs them on the card):
+    (n_dev, local, splitters, capacity, rows cut off the front)."""
+    spl4 = np.array([7, 0x80000000, 0xC0000000], np.uint32)
+    if name == "empty_bucket":  # equal splitters: bucket 1 holds nothing
+        return 4, _sorted_local(rng, 512, 400, _K9_WORDS), np.array(
+            [7, 7, 0x80000000], np.uint32), 288, 0
+    if name == "one_bucket_overflow":  # every valid row in bucket 1
+        return 4, _sorted_local(rng, 512, 500, _K9_WORDS[3:4]), spl4, 40, 0
+    if name == "nvalid_0":
+        return 4, _sorted_local(rng, 512, 0, _K9_WORDS), spl4, 288, 0
+    if name == "nvalid_m":
+        return 4, _sorted_local(rng, 512, 512, _K9_WORDS), spl4, 288, 0
+    if name == "m_capacity_odd":  # head and tail words in every slot
+        return 4, _sorted_local(rng, 1027, 1001, _K9_WORDS), spl4, 259, 0
+    if name == "view_off_16b":  # the stack one row into its storage
+        return 4, _sorted_local(rng, 513, 480, _K9_WORDS), spl4, 289, 1
+    if name == "n_dev_2":
+        return 2, _sorted_local(rng, 513, 450, _K9_WORDS), np.array(
+            [0x80000000], np.uint32), 289, 0
+    if name == "n_dev_8":
+        words = np.sort(rng.choice(_K9_WORDS, size=7).astype(np.uint32))
+        return 8, _sorted_local(rng, 1024, 900, _K9_WORDS), words, 150, 0
+    raise KeyError(name)
+
+
+K9B_EDGES = ["empty_bucket", "one_bucket_overflow", "nvalid_0", "nvalid_m",
+             "m_capacity_odd", "view_off_16b", "n_dev_2", "n_dev_8"]
+
+
+@pytest.mark.parametrize("seed", list(range(6)) + K9B_EDGES)
 def test_k9_plain_versions_and_kernel_design(seed):
-    """K9a sorts as unsigned words; K9b's plain scatter (the JAX body's
-    formulation) equals the CUDA kernel's gather formulation on sorted
-    stacks with ties across splitters, high words, sentinel padding
-    and overflow."""
-    rng = np.random.default_rng(seed)
-    n_dev = [2, 4, 8][seed % 3]
-    words = np.array(
-        [0, 7, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xC0000000, SENT - 1, SENT],
-        dtype=np.uint64,
-    )
-    samples = rng.choice(words, size=n_dev * 32).astype(np.uint32)
-    spl = tdm.splitters_plain(torch.from_numpy(samples.view(np.int32)), n_dev)
-    want = np.sort(samples)[31::32][: n_dev - 1]
-    np.testing.assert_array_equal(_u32(spl), want)
-    m = 512
-    local = _sorted_local(rng, m, int(rng.integers(0, m + 1)), words)
-    capacity = [m // n_dev, 2 * m // n_dev + 32, 40][seed % 3]
-    send, over = tdm.bucket_scatter_plain(
-        torch.from_numpy(local.view(np.int32)), spl, capacity, n_dev
-    )
-    g_send, g_over = _gather_formulation(local, want, capacity, n_dev)
-    np.testing.assert_array_equal(_u32(send), g_send)
-    np.testing.assert_array_equal(_u32(over), g_over)
+    """K9a sorts as unsigned words; K9b's plain scatter, the JAX body's
+    own bucket + scatter and a numpy model of the CUDA kernel's design
+    (searched runs, range copies, sentinel fill) agree on sorted stacks
+    with ties across splitters, high words, sentinel padding and
+    overflow (the seeds), and on K9b's edge cases."""
+    if isinstance(seed, int):
+        rng = np.random.default_rng(seed)
+        n_dev = [2, 4, 8][seed % 3]
+        samples = rng.choice(_K9_WORDS, size=n_dev * 32).astype(np.uint32)
+        spl = tdm.splitters_plain(
+            torch.from_numpy(samples.view(np.int32)), n_dev)
+        want = np.sort(samples)[31::32][: n_dev - 1]
+        np.testing.assert_array_equal(_u32(spl), want)
+        m = 512
+        local = _sorted_local(rng, m, int(rng.integers(0, m + 1)), _K9_WORDS)
+        capacity = [m // n_dev, 2 * m // n_dev + 32, 40][seed % 3]
+        cut = 0
+    else:
+        rng = np.random.default_rng(K9B_EDGES.index(seed) + 100)
+        n_dev, local, want, capacity, cut = _k9b_edge(seed, rng)
+        spl = torch.from_numpy(want.view(np.int32))
+    stack = torch.from_numpy(local.view(np.int32))[cut:]
+    send, over = tdm.bucket_scatter_plain(stack, spl, capacity, n_dev)
+    view = local[cut:]
+    j_send, j_over = _jax_bucket_scatter(view, want, capacity, n_dev)
+    k_send, k_over = _kernel_model(view, want, capacity, n_dev)
+    for got, other in ((_u32(send), j_send), (_u32(over), j_over),
+                       (_u32(send), k_send), (_u32(over), k_over)):
+        np.testing.assert_array_equal(got, other)
+    if seed == "empty_bucket":
+        assert (_u32(send)[1] == SENT).all()
+    if seed == "one_bucket_overflow":
+        assert int(_u32(over)[0]) == 500 - capacity
+    if seed == "nvalid_0":
+        assert (_u32(send) == SENT).all() and int(_u32(over)[0]) == 0
 
 
 def test_k9_wrappers_refuse_bad_operands():
@@ -681,5 +810,20 @@ def test_cuda_k7_k9_equal_plain(cuda_device, seed):
     cols[:, -100:] = SENT
     c = to_tensor(cols, cuda_device)
     for g, w in zip(tmerge.sort_dedup_kernel(c), tmerge.sort_dedup_plain(c)):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K9B_EDGES)
+def test_cuda_k9b_edges_equal_plain(cuda_device, name):
+    """K9b's edge cases on the card: send buffer and overflow word
+    bit-equal to the plain version."""
+    rng = np.random.default_rng(K9B_EDGES.index(name) + 100)
+    n_dev, local, spl, capacity, cut = _k9b_edge(name, rng)
+    stack = to_tensor(local, cuda_device)[cut:]
+    s = to_tensor(spl, cuda_device)
+    for g, w in zip(tdm.bucket_scatter_kernel(stack, s, capacity, n_dev),
+                    tdm.bucket_scatter_plain(stack, s, capacity, n_dev)):
         assert torch.equal(g, w)
     torch.cuda.synchronize()
