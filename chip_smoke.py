@@ -23,10 +23,13 @@ Phases (any failure exits non-zero):
                 K up to 256, J = 8 with empty slots, odd out_rows; K6
                 (the merge path over J jobs) on out_rows off the tile
                 and 0, K of 1, 2 and 8, runs below the tile, empty jobs
-                and 0xFFFFFFFF prefixes; K9b on an empty bucket, one
-                bucket overflowing, no and only valid rows, m and
+                and 0xFFFFFFFF prefixes; K7 (K5's schedule on nine
+                columns) on N of 8, a tile, two tiles and 2^20 with
+                full key ties and a sentinel tail; K9b (which picks the
+                splitters, K9a, in its own launch) on an empty bucket,
+                one bucket overflowing, no and only valid rows, m and
                 capacity off multiples of 4, a stack off a 16-byte
-                boundary, n_dev 2 and 8, and its host parts (K8c's
+                boundary, n_dev 2, 8 and 192, and its host parts (K8c's
                 sum within n * 2^-52 * sum|x| of math.fsum); K5 also at
                 the mesh's final sort (524288, 9), and on edge shapes (N
                 of 1 to two tiles, long runs with P > 1, the per-stage
@@ -73,7 +76,7 @@ Phases (any failure exits non-zero):
                 LSMTree (capacity 8192) takes 524288 writes of 16 B keys
                 drawn from 393216 ids with msgpack values {"v", "pad"},
                 64 flushed tables (~50 MB) compacted by the sample sort
-                (K5 x8, K9a x4, K9b x4, no overflow), SHA-256 equal to
+                (K5 x8, K9b x4, no overflow), SHA-256 equal to
                 the cpu merge of a copy, oracle gets, and K7 on the same
                 columns (mesh_k7) equal to the mesh and numpy; mesh_hot —
                 24 B keys with a hot 16 B prefix group, no overflow,
@@ -536,12 +539,15 @@ def _k6_edges(torch, np, B, rng, bit_err):
 
 
 def _k9b_edges(torch, np, B, D, rng, bit_err):
-    """K9b off the main-path data, on the card, send buffer and
-    overflow word bit-equal to the plain version: an empty bucket
+    """K9b off the main-path data, on the card, send buffer, overflow
+    word and splitters bit-equal to the plain version: an empty bucket
     (equal splitters), every valid row in one bucket (overflow), no
     valid row, no sentinel row, m and capacity not multiples of 4, the
     stack one row into its storage (the source off a 16-byte boundary),
-    n_dev = 2 and n_dev = 8.  Returns the cases' names."""
+    n_dev = 2, 8 and 192 (the pick's bitonic sort of 6144 samples).
+    Each case's samples (32 copies of each splitter and of 0xFFFFFFFF,
+    shuffled) are made to give its splitters.  Returns the cases'
+    names."""
     dev = torch.device("cuda")
     words = np.array([0, 5, 0x7FFFFFFF, 0x80000000, 0x80000001,
                       0xC0000000, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint64)
@@ -571,57 +577,66 @@ def _k9b_edges(torch, np, B, D, rng, bit_err):
          np.array([0x80000000], np.uint32), 131073),
         ("n_dev_8", 8, stack(m, m - 3000, words),
          np.sort(rng.choice(words, size=7)).astype(np.uint32), 32801),
+        ("n_dev_192", 192, stack(m, m - 3000, words),
+         np.sort(rng.choice(words, size=191)).astype(np.uint32), 1400),
     ]
+    srng = np.random.default_rng(90)
     for name, n_dev, local, spl, cap in cases:
-        s_t = B.to_tensor(spl, dev)
-        if bit_err("K9b", D.bucket_scatter_kernel(local, s_t, cap, n_dev),
-                   D.bucket_scatter_plain(local, s_t, cap, n_dev)):
-            raise AssertionError(f"K9b edge {name}: send buffers or "
-                                 "overflow differ")
+        smp = np.repeat(np.append(spl, np.uint32(0xFFFFFFFF)), 32)
+        s_t = B.to_tensor(srng.permutation(smp).astype(np.uint32), dev)
+        got = D.bucket_scatter_kernel(local, s_t, cap, n_dev)
+        if bit_err("K9b", got, D.pick_scatter_plain(local, s_t, cap, n_dev)):
+            raise AssertionError(f"K9b edge {name}: send buffers, overflow "
+                                 "or splitters differ")
+        if not np.array_equal(B.to_numpy(got[2]), spl):
+            raise AssertionError(f"K9b edge {name}: splitters are not the "
+                                 "case's")
     torch.cuda.synchronize()
     log(f"K9b edges: {len(cases)} cases bit-equal to the plain version")
     return [c[0] for c in cases]
 
 
-def _k9b_host_parts(torch, D, local, spl, cap, n_dev):
+def _k9b_host_parts(torch, D, local, smp, cap, n_dev):
     """What one K9b call at the wide shape spends on the host, part by
-    part (µs per call, 500 calls each): the checks, the wrapper's two
+    part (µs per call, 500 calls each): the checks, the wrapper's three
     allocations, the device guard, the stream lookup, the ctypes launch,
     the counter and the whole call."""
     from dbeel_tpu_torch.ops import _cuda
     from dbeel_tpu_torch.ops.bitonic import _stream
 
     words = n_dev * cap * 9
-    send = torch.empty(words + 1, dtype=torch.int32, device=local.device)
+    send = torch.empty(words + n_dev, dtype=torch.int32, device=local.device)
     fn = _cuda.dist_lib().dbeel_dist_bucket_scatter
     stream = _stream(local)
 
     def check():
         D._check("local", local, (local.shape[0], 9))
-        D._check("splitters", spl, (n_dev - 1,))
-        D._device_kind(local, spl)
+        D._check("samples", smp, (n_dev * 32,))
+        D._device_kind(local, smp)
 
-    def two_buffers():
+    def three_buffers():
         return (torch.empty((n_dev, cap, 9), dtype=torch.int32,
                             device=local.device),
-                torch.empty(1, dtype=torch.int32, device=local.device))
+                torch.empty(1, dtype=torch.int32, device=local.device),
+                torch.empty(n_dev - 1, dtype=torch.int32, device=local.device))
 
     def guard():
         with torch.cuda.device(local.device):
             pass
 
     def launch():
-        fn(local.data_ptr(), local.shape[0], spl.data_ptr(), n_dev, cap,
-           send.data_ptr(), send.data_ptr() + words * 4, stream)
+        fn(local.data_ptr(), local.shape[0], smp.data_ptr(), n_dev, cap,
+           send.data_ptr(), send.data_ptr() + words * 4,
+           send.data_ptr() + (words + 1) * 4, stream)
 
     parts = {
         "check": check,
-        "empty_two_buffers": two_buffers,
+        "empty_three_buffers": three_buffers,
         "device_guard": guard,
         "stream": lambda: _stream(local),
         "ctypes_launch": launch,
         "count": lambda: _cuda.count("K9b"),
-        "whole_call": lambda: D.bucket_scatter_kernel(local, spl, cap, n_dev),
+        "whole_call": lambda: D.bucket_scatter_kernel(local, smp, cap, n_dev),
     }
     parts = {k: _host_us(torch, f, 500) for k, f in parts.items()}
     log("K9b host parts (us per call): "
@@ -765,6 +780,29 @@ def _schedule_edges(torch, np, B, rng, bit_err, name, kernel, plain, cases):
     return names
 
 
+def _k7_edges(torch, np, B, M, bit_err):
+    """K7 (K5's schedule on nine columns) off the main-path shape, on
+    the card, bit-equal to sort_dedup_plain: N of 8 and 1024 (the first
+    launch alone reads and writes the columns), 2048 (one level past
+    the tile) and 2^20 (past tile^2/2: the last level's per-stage
+    launches), with 8-column ties and a sentinel tail of max(2, N/8)
+    rows.  Returns the cases' names."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    names = []
+    for n in (8, 1024, 2048, 1 << 20):
+        c = rng.integers(0, 2, size=(9, n), dtype=np.uint64).astype(np.uint32)
+        c[8] = rng.permutation(n).astype(np.uint32)
+        c[:, n - max(2, n // 8):] = 0xFFFFFFFF
+        cols = B.to_tensor(c, dev)
+        if bit_err("K7", M.sort_dedup_kernel(cols), M.sort_dedup_plain(cols)):
+            raise AssertionError(f"K7 edge N={n}: differs")
+        names.append(f"N={n}")
+    torch.cuda.synchronize()
+    log(f"K7 edges: {len(names)} cases bit-equal to the network")
+    return names
+
+
 def phase_kernels(torch, np):
     from dbeel_tpu_torch.ops import bitonic as B
 
@@ -801,7 +839,8 @@ def phase_kernels(torch, np):
         return {
             "ms": _time_cuda(torch, kernel, 20),
             "device_ms": device_ms,
-            # At most ~256 launches queued (K7 makes 66 per call).
+            # At most ~256 launches queued (K7 and the mesh sort make 19
+            # per call).
             "host_us": _host_us(
                 torch, kernel, max(5, min(100, int(256 // per_call)))
             ),
@@ -951,8 +990,7 @@ def phase_kernels(torch, np):
     )
     log(f"K4 passes (kernel, device us): {json.dumps(k4['passes_us'])}")
     # K = 1, runs below, at and above the 1024-row tile, and N = 2^20,
-    # past tile^2/2, whose last level takes run_network's per-stage
-    # launches.
+    # past tile^2/2, whose last level takes one launch a stride.
     k4["edge_cases"] = _schedule_edges(
         torch, np, B, np.random.default_rng(4), bit_err, "K4",
         B.merge_runs_perm_kernel, B.perm_plain,
@@ -1071,38 +1109,29 @@ def phase_kernels(torch, np):
         n // 2 * (levels7 * (levels7 + 1) // 2) * 8,
         module="merge", source="dbeel_tpu_torch/csrc/bitonic.cu",
     )
+    # K5's schedule with P = 1: a first tile launch that reads the
+    # columns, then a group and a tile launch a level past the tile.
+    k7 = results[-1]
+    _expect_launches(k7, 1 + 2 * (levels7 - 10))
+    k7["passes_us"] = _pass_profile(torch, lambda: M.sort_dedup_kernel(cols7))
+    log(f"K7 passes (kernel, device us): {json.dumps(k7['passes_us'])}")
     del cols7, key7
+    k7["edge_cases"] = _k7_edges(torch, np, B, M, bit_err)
 
-    # K9a (128,): the gathered samples of 4 partitions — first words
-    # >= 0x80000000 and runs of equal samples across the splitter
-    # positions.
+    # K9b (131072, 9) → (4, 65568, 9) from the gathered samples of 4
+    # partitions: the wide cell's local stack, sorted, first words from
+    # a few values (ties across splitters, >= 0x80000000, 0xFFFFFFFF)
+    # and a sentinel tail; held at the wide capacity and at one small
+    # enough to overflow.  First the splitter pick folded into its
+    # launch (K9a's former row): 8 trials of gathered samples — first
+    # words >= 0x80000000 and runs of equal samples across the splitter
+    # positions — each call's splitters bit-equal to the plain pick.
     n_dev = MESH_PARTS
     words9 = np.array([0, 5, 0x7FFFFFFF, 0x80000000, 0x80000001,
                        0xC0000000, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint64)
     smp = T(rng.choice(words9, size=n_dev * 32).astype(np.uint32))
-    for trial in range(8):
-        s_t = T(rng.choice(words9[trial % 4:], size=n_dev * 32)
-                .astype(np.uint32))
-        if bit_err("K9a", D.splitters_kernel(s_t, n_dev),
-                   D.splitters_plain(s_t, n_dev)):
-            raise AssertionError(f"K9a trial {trial}: splitters differ")
-    smp64 = B._u64(smp)
-    record(
-        "K9a", "splitters_kernel",
-        "dbeel_tpu/parallel/dist_merge.py:117 (_dist_kernel; body "
-        "_per_device :67, splitters :76-86)",
-        lambda: D.splitters_kernel(smp, n_dev),
-        lambda: D.splitters_plain(smp, n_dev),
-        lambda: torch.sort(smp64),
-        smp.numel() * 4 + (n_dev - 1) * 4,
-        smp.numel() * (smp.numel().bit_length() - 1),
-        module="dist", wrapper="parallel/dist_merge.py",
-    )
-
-    # K9b (131072, 9) → (4, 65568, 9): the wide cell's local stack,
-    # sorted, first words from a few values (ties across splitters,
-    # >= 0x80000000, 0xFFFFFFFF) and a sentinel tail; held at the wide
-    # capacity and at one small enough to overflow.
+    trials = [T(rng.choice(words9[trial % 4:], size=n_dev * 32)
+                .astype(np.uint32)) for trial in range(8)]
     m9 = 131072
     cap9 = int(m9 * 2.0 / n_dev) + 32
     loc = rng.integers(0, 1 << 32, size=(m9, 9), dtype=np.uint64)
@@ -1113,35 +1142,67 @@ def phase_kernels(torch, np):
     loc[m9 - 3000:] = 0xFFFFFFFF
     loc[: m9 - 3000] = loc[: m9 - 3000][np.lexsort(loc[: m9 - 3000, :8].T[::-1])]
     local9 = T(loc)
+    for trial, s_t in enumerate(trials):
+        got = D.bucket_scatter_kernel(local9, s_t, cap9, n_dev)[2]
+        if bit_err("K9a", got, D.splitters_plain(s_t, n_dev)):
+            raise AssertionError(f"K9a trial {trial}: splitters differ")
     pos9 = torch.arange(n_dev * 32, device=dev) * m9 // (n_dev * 32)
-    spl9 = D.splitters_plain(local9[pos9, 0].contiguous(), n_dev)
+    smp9 = local9[pos9, 0].contiguous()
     for cap in (cap9, 20000):
-        if bit_err("K9b", D.bucket_scatter_kernel(local9, spl9, cap, n_dev),
-                   D.bucket_scatter_plain(local9, spl9, cap, n_dev)):
-            raise AssertionError(f"K9b capacity {cap}: send buffers differ")
-    over9 = int(D.bucket_scatter_kernel(local9, spl9, 20000, n_dev)[1].item())
+        if bit_err("K9b", D.bucket_scatter_kernel(local9, smp9, cap, n_dev),
+                   D.pick_scatter_plain(local9, smp9, cap, n_dev)):
+            raise AssertionError(f"K9b capacity {cap}: outputs differ")
+    over9 = int(D.bucket_scatter_kernel(local9, smp9, 20000, n_dev)[1].item())
     if over9 <= 0:
         raise AssertionError("K9b: the small capacity did not overflow")
     k0_9 = B._u64(local9[:, 0])
-    spl64 = B._u64(spl9)
+    spl64 = B._u64(D.splitters_plain(smp9, n_dev))
     record(
         "K9b", "bucket_scatter_kernel",
         "dbeel_tpu/parallel/dist_merge.py:117 (_dist_kernel; body "
-        "_per_device :67, bucket + scatter :88-102)",
-        lambda: D.bucket_scatter_kernel(local9, spl9, cap9, n_dev),
-        lambda: D.bucket_scatter_plain(local9, spl9, cap9, n_dev),
+        "_per_device :67, splitters :76-86 and bucket + scatter :88-102)",
+        lambda: D.bucket_scatter_kernel(local9, smp9, cap9, n_dev),
+        lambda: D.pick_scatter_plain(local9, smp9, cap9, n_dev),
         lambda: torch.bucketize(k0_9, spl64),
-        local9.numel() * 4 + n_dev * cap9 * 9 * 4 + (n_dev - 1) * 4 + 4,
+        local9.numel() * 4 + n_dev * cap9 * 9 * 4 + smp9.numel() * 4
+        + (n_dev - 1) * 4 + 4,
         m9 * (n_dev - 1),
         module="dist", wrapper="parallel/dist_merge.py",
     )
     log(f"K9b: the overflow check dropped {over9} rows at capacity 20000")
     k9b = results[-1]
-    k9b["host_parts_us"] = _k9b_host_parts(torch, D, local9, spl9, cap9,
+    k9b["host_parts_us"] = _k9b_host_parts(torch, D, local9, smp9, cap9,
                                            n_dev)
     k9b["edge_cases"] = _k9b_edges(torch, np, B, D,
                                    np.random.default_rng(9), bit_err)
     del local9, k0_9
+    # K9a's row: the pick runs inside K9b's launch and has no launch,
+    # counter or call of its own, so its times are the fused call's.
+    smp64 = B._u64(smp)
+    bound9a = (smp.numel() * 4 + (n_dev - 1) * 4) / PEAK_BYTES_PER_S * 1e3
+    k9a = {
+        "name": "K9a",
+        "route": "cuda",
+        "source": "dbeel_tpu_torch/csrc/dist.cu",
+        "wrapper": "dbeel_tpu_torch/parallel/dist_merge.py:"
+                   "bucket_scatter_kernel",
+        "replaces": "dbeel_tpu/parallel/dist_merge.py:117 (_dist_kernel; "
+                    "body _per_device :67, splitters :76-86)",
+        "folded_into": "K9b",
+        "launches": 0,
+        "bit_equal": True,
+        "max_abs_err": 0,
+        "trials": len(trials),
+        **{k: k9b[k] for k in ("ms", "device_ms", "host_us",
+                               "device_kernels", "device_launches_per_call")},
+        "plain_ms": _time_cuda(torch, lambda: D.splitters_plain(smp, n_dev), 3),
+        "bound_ms": bound9a,
+        "bound_by": "bytes",
+        "library_ms": _time_cuda(torch, lambda: torch.sort(smp64), 20),
+    }
+    log(f"K9a: folded into K9b, {len(trials)} trials and K9b's edges "
+        f"bit_equal; {_timings_text(k9a)} library_ms={k9a['library_ms']}")
+    results.insert(len(results) - 1, k9a)
 
     # K8a-K8d at the scan phase's shape: one staged float64 column of
     # SCAN_DOCS rows, 20% invalid, salted with NaN, +-inf, +-0.0,
@@ -2448,10 +2509,11 @@ def phase_mesh(torch, np, bench=None, devices=None, n_ops=WIDE_OPS,
 
 
 def check_mesh_launches(runs):
-    """mesh_wide, mesh_hot: K5 x8, K9a x4, K9b x4 and nothing else;
-    mesh_k7: K7 x1; mesh_skew: the same plus K4 x1; mesh_big: K1/K2
-    only, a multiple of the partition count."""
-    sort = {"K5": 2 * MESH_PARTS, "K9a": MESH_PARTS, "K9b": MESH_PARTS}
+    """mesh_wide, mesh_hot: K5 x8, K9b x4 and nothing else (the
+    splitter pick runs inside K9b's launch); mesh_k7: K7 x1; mesh_skew:
+    the same plus K4 x1; mesh_big: K1/K2 only, a multiple of the
+    partition count."""
+    sort = {"K5": 2 * MESH_PARTS, "K9b": MESH_PARTS}
     for name, extra in (("mesh_wide", {}), ("mesh_hot", {}),
                         ("mesh_skew", {"K4": 1}), ("mesh_k7", None)):
         got = runs[name]
@@ -2547,7 +2609,8 @@ def main(argv=None) -> int:
             shutil.rmtree(bench["dir"])
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
-            by_run = {run: c[row["name"]] for run, c in runs.items()}
+            # A kernel folded into another's launch has no counter.
+            by_run = {run: c.get(row["name"], 0) for run, c in runs.items()}
             row["launches"] = sum(by_run.values())
             row["launches_by_run"] = by_run
         log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -16,26 +16,27 @@
 // lex_gt(lo, hi) is strictly true (_bitonic_to_sorted :53).  Following
 // the network bit for bit keeps the output equal even where rows tie on
 // every compared word (K4 with long keys sharing a 16-byte prefix, a
-// length, a ts and a source).  The reversal is fused into the first
+// length, a ts and a source; K7's rows tied on all 8 key columns and
+// apart in the carried ninth).  The reversal is fused into the first
 // stage of each level: one thread owns the two pairs (t, h-1-t) a
 // reversal would exchange, so no pass is spent on it.  K5's flush sort
 // is the P = 1 case (every row its own run): a one-row run reverses to
-// itself, so its first level's flip is a plain stage.  K4 is K5's
-// network with another epilogue: the sorted rows' word 8 and the
-// same-key flags, not the rows.  K7 is the same P = 1 network on nine
-// separate operand columns: lax.sort of 9 u32 operands on 8 keys, with a
-// staging pass from columns to rows before it and a column epilogue
-// (plus _same_key_mask's flags) after it.
+// itself, so its first level's flip is a plain stage.
+//
+// K4, K5 and K7 share one schedule, k5_merge_rows ("One schedule for K4,
+// K5 and K7" below), and differ only at its ends.  K5 reads rows and
+// writes the sorted rows; K4 writes only their word 8; K7 is the P = 1
+// network on nine separate operand columns (lax.sort of 9 u32 operands on
+// 8 keys): its first launch reads the columns and its last writes the
+// sorted rows back as columns, with _same_key_mask's flags, which have
+// no sentinel check.
 //
 // Bound: bytes.  Each operand row is read once and each output word
 // written once; the network does N/2 compare-exchanges per stage, a few
-// integer ops each, far under the card's integer rate.  K7 (run_network)
-// runs strides >= TILE/2 as one global-memory launch per stage and every
-// smaller stride of a level in one shared-memory tile launch (TILE rows
-// of 9 words, 36 KiB), so a level costs (log2(2 P_l) - log2(TILE) + 2)
-// passes over the rows.  K4 and K5 run the same stages in two passes a
-// level ("K4 and K5: the same network in fewer passes" below).  None is
-// near the bound yet; PERF.md keeps their times.
+// integer ops each, far under the card's integer rate.  What holds the
+// schedule above that bound is its passes (two a level past the tile,
+// each reading and writing every row) and the shared-memory stages
+// inside them; PERF.md keeps the times.
 //
 // Interface: plain C, launched on the caller's stream, no allocation
 // (the wrapper passes the work buffer), returns cudaGetLastError().
@@ -47,13 +48,7 @@ namespace {
 
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
-
-template <int W>
-struct Tile;
-template <>
-struct Tile<9> {
-  static constexpr uint32_t rows = 1024;  // 36 KiB
-};
+constexpr uint32_t kTile = 1024;  // rows of 9 words in shared memory: 36 KiB
 
 template <int W, typename I>
 __device__ __forceinline__ void load_row(const uint32_t* base, I i,
@@ -169,56 +164,6 @@ __device__ void smem_flip(uint32_t* sm, uint32_t n, uint32_t h) {
   __syncthreads();
 }
 
-// Every stage of stride <= s_start on one tile of `tile` rows held in
-// shared memory (2 * s_start <= tile).  With `flip_first` the first
-// stage is the level's fused reversal at stride s_start.
-template <int W, int NCMP>
-__global__ void tile_kernel(uint32_t* rows, uint32_t tile, uint32_t s_start,
-                            int flip_first) {
-  extern __shared__ uint32_t sm[];
-  const uint64_t off = (uint64_t)blockIdx.x * tile * W;
-  for (uint32_t e = threadIdx.x; e < tile * W; e += blockDim.x)
-    sm[e] = rows[off + e];
-  __syncthreads();
-  uint32_t s = s_start;
-  if (flip_first) {
-    smem_flip<W, NCMP>(sm, tile, s);
-    s >>= 1;
-  }
-  for (; s >= 1; s >>= 1) smem_stage<W, NCMP>(sm, tile, s);
-  for (uint32_t e = threadIdx.x; e < tile * W; e += blockDim.x)
-    rows[off + e] = sm[e];
-}
-
-// K7 staging: nine separate operand columns (column c at cols + c*n)
-// into rows of nine words.
-__global__ void cols_to_rows_kernel(const uint32_t* cols, uint64_t n,
-                                    uint32_t* rows) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-#pragma unroll
-  for (int c = 0; c < 9; ++c) rows[i * 9 + c] = cols[c * n + i];
-}
-
-// K7 epilogue: the sorted rows back as nine columns, and
-// _same_key_mask (merge.py:42) — same[i] = words 0-4 of row i equal
-// those of row i-1, with no sentinel check (unlike K4/K5's epilogue).
-__global__ void rows_to_cols_same_kernel(const uint32_t* rows, uint64_t n,
-                                         uint32_t* cols, uint8_t* same) {
-  const uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-#pragma unroll
-  for (int c = 0; c < 9; ++c) cols[c * n + i] = rows[i * 9 + c];
-  uint8_t s = 0;
-  if (i > 0) {
-    bool eq = true;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) eq = eq && rows[i * 9 + c] == rows[(i - 1) * 9 + c];
-    s = eq;
-  }
-  same[i] = s;
-}
-
 inline unsigned blocks_for(uint64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -229,46 +174,19 @@ inline uint32_t log2_exact(uint64_t v) {
   return l;
 }
 
-// log2(K) merge levels over n = K*P rows (K, P powers of two); K7 runs
-// it with P = 1.
-template <int W, int NCMP>
-cudaError_t run_network(uint32_t* rows, uint64_t n, uint64_t k, uint64_t p,
-                        cudaStream_t st) {
-  const uint64_t tile = n < Tile<W>::rows ? n : Tile<W>::rows;
-  const unsigned tile_threads = (unsigned)(tile / 2 < 512 ? tile / 2 : 512);
-  const size_t smem = tile * W * sizeof(uint32_t);
-  const unsigned tiles = (unsigned)(n / tile);
-  for (uint64_t h = p; h < k * p; h <<= 1) {
-    if (2 * h <= tile) {
-      tile_kernel<W, NCMP><<<tiles, tile_threads, smem, st>>>(
-          rows, (uint32_t)tile, (uint32_t)h, 1);
-    } else {
-      flip_stage_kernel<W, NCMP><<<blocks_for(n / 4), kThreads, 0, st>>>(
-          rows, n, h);
-      uint64_t s = h >> 1;
-      for (; 2 * s > tile; s >>= 1)
-        stage_kernel<W, NCMP><<<blocks_for(n / 2), kThreads, 0, st>>>(
-            rows, n, s);
-      tile_kernel<W, NCMP><<<tiles, tile_threads, smem, st>>>(
-          rows, (uint32_t)tile, (uint32_t)s, 0);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
-}
-
-// ---- K4 and K5: the same network in fewer passes --------------------------
+// ---- One schedule for K4, K5 and K7 --------------------------------------
 //
-// K5, and K4 with its own epilogue, run run_network's stages exactly
-// (rows of 9 words compared on 8, the reversal fused into each level's
-// first stage, a swap only on a strict lex_gt, the same shared-memory
-// stages smem_stage and smem_flip), but group them into fewer passes
-// over the rows.  With a tile of TILE = Tile<9>::rows = 1024 rows (36 KiB
-// of shared memory; 128 blocks at the flush shape of 2^17 rows, about
-// one an SM) and N > TILE:
+// The network's stages (rows of 9 words compared on 8, the reversal fused
+// into each level's first stage, a swap only on a strict lex_gt, the
+// shared-memory stages smem_stage and smem_flip), grouped into few passes
+// over the rows.  With a tile of TILE = kTile = 1024 rows (36 KiB of
+// shared memory; 128 blocks at the flush shape of 2^17 rows, about one
+// an SM) and N > TILE:
 //   1. one tile launch stages the operand and runs every level whose
-//      segments (2h rows) lie within a tile: h = P .. TILE/2;
+//      segments (2h rows) lie within a tile: h = P .. TILE/2.  K7's
+//      operand is nine columns (word c of row i at cols[c*N + i]): the
+//      launch reads each column coalesced in i into sm[i*9 + c] (9 is
+//      odd, so a warp's stores meet no bank twice);
 //   2. per later level, one group launch runs every stage of stride
 //      >= TILE.  A segment of 2h rows is G = 2h/TILE tiles; those stages
 //      pair rows whose indices differ only in the tile bits, except the
@@ -282,22 +200,28 @@ cudaError_t run_network(uint32_t* rows, uint64_t n, uint64_t k, uint64_t p,
 //      plain half-cleaner in shared memory, and writes the rows back in
 //      place: one pass for what took 1 + log2(h/TILE) launches;
 //   3. per later level, one tile launch for the strides TILE/2 .. 1;
-//   4. the last tile launch writes the same-key flags (_merged_with_same
-//      :81-90) and, as its epilogue, K5 the sorted rows, K4 only their
-//      word 8 (the carried index) from shared memory.  A tile's first
-//      row is compared with the previous tile's last row, which is the
-//      lexicographic maximum of the previous tile's rows: a tile launch
-//      only permutes rows within a tile, and this one reads the work
-//      buffer, which none of its blocks writes, so each block reduces
-//      the previous tile's rows itself and no block waits on another.
+//   4. the last tile launch writes the same-key flags and, as its
+//      epilogue, K5 the sorted rows, K4 only their word 8 (the carried
+//      index), K7 the rows as nine columns (out[c*N + i], coalesced as
+//      in 1).  K4's and K5's flags follow _merged_with_same (bitonic.py
+//      :81-90): words 0-4 equal to the previous row's and word 4 not the
+//      sentinel; K7's follow _same_key_mask (merge.py:42-51), with no
+//      sentinel check, so K7's all-sentinel padding rows after the first
+//      are flagged.  A tile's first row is compared with the previous
+//      tile's last row, which is the lexicographic maximum of the
+//      previous tile's rows: a tile launch only permutes rows within a
+//      tile, and this one reads the work buffer, which none of its blocks
+//      writes, so each block reduces the previous tile's rows itself and
+//      no block waits on another.
 // That is 1 + 2 log2(N/TILE) launches (15 at N = 2^17, 19 at 2^19) where
-// run_network with the staging and epilogue launches takes 47 and 66.
-// Runs of P >= TILE rows (K4's (8, 2^15)) leave the first launch nothing
-// to merge: it only stages the operand, and the call is 1 + 2 log2(K)
-// launches (7 at K = 8, where run_network took 26).
+// the former network (one launch a stride >= TILE/2, with a staging and
+// an epilogue launch) took 47 and 66.  Runs of P >= TILE rows (K4's
+// (8, 2^15)) leave the first launch nothing to merge: it only stages the
+// operand, and the call is 1 + 2 log2(K) launches (7 at K = 8).  Where
+// N <= TILE the first launch is also the last (one block).
 // The group needs G <= TILE/2, i.e. N <= TILE^2/2 (2^19 at TILE 1024); a
-// level past that runs its stages of stride >= TILE one launch each, as
-// run_network does, so any power-of-two N stays correct.
+// level past that runs its stages of stride >= TILE one launch each
+// (flip_stage_kernel, stage_kernel), so any power-of-two N stays correct.
 //
 // Bound: bytes, as for the network above.  Every pass reads and writes
 // the 36 B rows once (a tile's words, or a group's chunks of L rows, in
@@ -307,7 +231,12 @@ cudaError_t run_network(uint32_t* rows, uint64_t n, uint64_t k, uint64_t p,
 // first launch) is what the passes wait on, next to the launches
 // themselves (PERF.md §6 has each pass's time).
 
-constexpr uint32_t kRowW = 9;  // K4/K5 rows: words 0-7 compared, 8 carried
+constexpr uint32_t kRowW = 9;  // rows: words 0-7 compared, 8 carried
+
+// A k5_tile_kernel launch's operand and output layout, and its flag rule.
+constexpr uint32_t kColsIn = 1;   // src: nine columns of n rows (K7)
+constexpr uint32_t kColsOut = 2;  // dst: nine columns of n rows (K7)
+constexpr uint32_t kSameAll = 4;  // flags without the sentinel check (K7)
 
 // Copies the block's tile * 9 words, word e from load(e) to store(e, v),
 // nine loads in flight a thread (one block an SM holds too few warps to
@@ -370,17 +299,32 @@ __device__ void k5_max5(const uint32_t* src, uint32_t rows, uint32_t* out) {
 // work buffer or the operand, never an output) the same-key flags too,
 // and with `idx` (K4's last pass; dst unused) each sorted row's word 8 to
 // idx in place of the tile to dst.  src may equal dst otherwise.
+// `layout` (kColsIn, kColsOut, kSameAll) names K7's ends; n is the rows
+// of the whole operand, the columns' stride.  kColsIn with `same` takes
+// one block: the previous tile's maximum is read as rows.
 __global__ void __launch_bounds__(512, 2)
     k5_tile_kernel(const uint32_t* src, uint32_t* dst, uint32_t* idx,
                    uint32_t tile, uint32_t s_start, uint32_t h_first,
-                   uint8_t* same) {
+                   uint8_t* same, uint64_t n, uint32_t layout) {
   extern __shared__ uint32_t sm[];
   __shared__ uint32_t prev[5];
   const uint64_t off = (uint64_t)blockIdx.x * tile * kRowW;
+  const uint64_t row0 = (uint64_t)blockIdx.x * tile;
+  // In a column copy, element e is row e & (tile-1) of column e >> lt.
+  const uint32_t lt = __ffs(tile) - 1, rmask = tile - 1;
   if (same && blockIdx.x > 0) k5_max5(src + off - tile * kRowW, tile, prev);
-  k5_copy(
-      tile, [&](uint32_t e) { return src[off + e]; },
-      [&](uint32_t e, uint32_t v) { sm[e] = v; });
+  if (layout & kColsIn) {
+    k5_copy(
+        tile,
+        [&](uint32_t e) { return src[(e >> lt) * n + row0 + (e & rmask)]; },
+        [&](uint32_t e, uint32_t v) {
+          sm[(e & rmask) * kRowW + (e >> lt)] = v;
+        });
+  } else {
+    k5_copy(
+        tile, [&](uint32_t e) { return src[off + e]; },
+        [&](uint32_t e, uint32_t v) { sm[e] = v; });
+  }
   __syncthreads();
   for (uint32_t s = s_start; s >= 1; s >>= 1) smem_stage<9, 8>(sm, tile, s);
   for (uint32_t h = h_first; 2 * h <= tile; h <<= 1) {
@@ -389,6 +333,7 @@ __global__ void __launch_bounds__(512, 2)
       smem_stage<9, 8>(sm, tile, s);
   }
   if (same) {
+    const bool all = layout & kSameAll;
     for (uint32_t i = threadIdx.x; i < tile; i += blockDim.x) {
       const uint32_t* r = sm + i * kRowW;
       uint8_t flag = 0;
@@ -397,14 +342,20 @@ __global__ void __launch_bounds__(512, 2)
         bool eq = true;
 #pragma unroll
         for (int c = 0; c < 5; ++c) eq = eq && r[c] == q[c];
-        flag = eq && r[4] != kSentinel;
+        flag = eq && (all || r[4] != kSentinel);
       }
-      same[(uint64_t)blockIdx.x * tile + i] = flag;
+      same[row0 + i] = flag;
     }
   }
   if (idx) {
     for (uint32_t i = threadIdx.x; i < tile; i += blockDim.x)
-      idx[(uint64_t)blockIdx.x * tile + i] = sm[i * kRowW + 8];
+      idx[row0 + i] = sm[i * kRowW + 8];
+  } else if (layout & kColsOut) {
+    k5_copy(
+        tile, [&](uint32_t e) { return sm[(e & rmask) * kRowW + (e >> lt)]; },
+        [&](uint32_t e, uint32_t v) {
+          dst[(e >> lt) * n + row0 + (e & rmask)] = v;
+        });
   } else {
     k5_copy(
         tile, [&](uint32_t e) { return sm[e]; },
@@ -457,20 +408,23 @@ __global__ void __launch_bounds__(512, 2)
 }
 
 // K5 (out: the sorted rows) or K4 (idx: their word 8; out null), with
-// the same-key flags; work holds n*9 words.
+// the same-key flags; work holds n*9 words.  With `cols` (K7) the operand
+// and out are nine columns of n rows and the flags K7's.
 int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
                   uint32_t* work, uint32_t* out, uint32_t* idx,
-                  uint8_t* same, cudaStream_t st) {
-  const uint32_t tile = (uint32_t)(n < Tile<9>::rows ? n : Tile<9>::rows);
+                  uint8_t* same, bool cols, cudaStream_t st) {
+  const uint32_t tile = (uint32_t)(n < kTile ? n : kTile);
   const unsigned blocks = (unsigned)(n / tile);
   const unsigned threads = tile < 2 ? 1 : tile / 2;
   const size_t smem = (size_t)tile * kRowW * sizeof(uint32_t);
+  const uint32_t last_layout = cols ? kColsOut | kSameAll : 0;
   uint64_t h = p;  // the first level past the first launch's tiles
   while (2 * h <= tile) h <<= 1;
   bool last = h >= n;
   k5_tile_kernel<<<blocks, threads, smem, st>>>(
       stacks, last ? out : work, last ? idx : nullptr, tile, 0,
-      (uint32_t)(p < tile ? p : tile), last ? same : nullptr);
+      (uint32_t)(p < tile ? p : tile), last ? same : nullptr, n,
+      (cols ? kColsIn : 0) | (last ? last_layout : 0));
   for (; h < n; h <<= 1) {
     const uint64_t g = 2 * h / tile;
     if (g <= tile / 2) {
@@ -486,7 +440,7 @@ int k5_merge_rows(const uint32_t* stacks, uint64_t n, uint64_t p,
     last = 2 * h == n;
     k5_tile_kernel<<<blocks, threads, smem, st>>>(
         work, last ? out : work, last ? idx : nullptr, tile, tile / 2, tile,
-        last ? same : nullptr);
+        last ? same : nullptr, n, last ? last_layout : 0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -499,44 +453,42 @@ extern "C" {
 
 // K4: stacks (K,P,9) u32 -> idx (K*P,) u32, the sorted rows' word 8, +
 // same (K*P,) bytes 0/1; work holds K*P*9 u32.  K5's schedule with the
-// index epilogue (see "K4 and K5: the same network in fewer passes").
+// index epilogue (see "One schedule for K4, K5 and K7").
 // Bound: bytes (the stack read once, the index and the flags written
 // once).  Counted as "K4" by ops/bitonic.py merge_runs_perm_kernel.
 int dbeel_bitonic_perm(const uint32_t* stacks, uint32_t k, uint32_t p,
                        uint32_t* work, uint32_t* idx, uint8_t* same,
                        void* stream) {
   return k5_merge_rows(stacks, (uint64_t)k * p, p, work, nullptr, idx, same,
-                       (cudaStream_t)stream);
+                       false, (cudaStream_t)stream);
 }
 
 // K5: stacks (K,P,9) u32 -> out (K*P, 9) u32, the whole sorted stack, +
 // same (K*P,) bytes 0/1; work holds K*P*9 u32.  The flush sort
-// (sort_stack_kernel) is K = N rows, P = 1.  See "K4 and K5: the same
-// network in fewer passes".  Bound: bytes (the stack read once, the sorted stack
-// and the flags written once).  Counted as "K5" by ops/bitonic.py
+// (sort_stack_kernel) is K = N rows, P = 1.  See "One schedule for K4, K5
+// and K7".  Bound: bytes (the stack read once, the sorted stack and the
+// flags written once).  Counted as "K5" by ops/bitonic.py
 // merge_runs_kernel.
 int dbeel_bitonic_merge_rows(const uint32_t* stacks, uint32_t k, uint32_t p,
                              uint32_t* work, uint32_t* out, uint8_t* same,
                              void* stream) {
   return k5_merge_rows(stacks, (uint64_t)k * p, p, work, out, nullptr, same,
-                       (cudaStream_t)stream);
+                       false, (cudaStream_t)stream);
 }
 
 // K7: cols (9, N) u32 — nine operand columns, N a power of two >= 8 —
 // -> out (9, N) u32, the columns sorted lexicographically on the first
-// eight, + same (N,) bytes 0/1 over columns 0-4; work holds N*9 u32.
-// Bound: bytes (the columns read once, the sorted columns and the flags
-// written once).  Counted as "K7" by ops/merge.py sort_dedup_kernel.
+// eight, + same (N,) bytes 0/1 over columns 0-4 (no sentinel check);
+// work holds N*9 u32.  K5's schedule with P = 1, a column prologue and a
+// column epilogue (see "One schedule for K4, K5 and K7"): 19 launches at
+// N = 2^19.  Bound: bytes (the columns read once, the sorted columns and
+// the flags written once).  Counted as "K7" by ops/merge.py
+// sort_dedup_kernel.
 int dbeel_bitonic_sort_dedup_cols(const uint32_t* cols, uint32_t n,
                                   uint32_t* work, uint32_t* out,
                                   uint8_t* same, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cols_to_rows_kernel<<<blocks_for(n), kThreads, 0, st>>>(cols, n, work);
-  cudaError_t err = run_network<9, 8>(work, n, n, 1, st);
-  if (err != cudaSuccess) return (int)err;
-  rows_to_cols_same_kernel<<<blocks_for(n), kThreads, 0, st>>>(work, n, out,
-                                                               same);
-  return (int)cudaGetLastError();
+  return k5_merge_rows(cols, n, 1, work, out, nullptr, same, true,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

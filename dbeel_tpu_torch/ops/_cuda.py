@@ -4,9 +4,9 @@ Route (b) of a hand-written kernel: ``nvcc`` compiles each source into
 a shared library with a plain C interface, loaded with ctypes — one
 library per source (``bitonic.cu``: the merge networks K4, K5 and K7;
 ``merge_path.cu``: the merge-path merges K1-K3 and K6; ``query.cu``:
-the filter kernels K8; ``dist.cu``: the sample sort's splitters and
-bucket scatter K9a/K9b), so the builds run side by side and a change
-to one source rebuilds only its library.  A build runs at
+the filter kernels K8; ``dist.cu``: the sample sort's bucket scatter
+K9b, which also picks the splitters), so the builds run side by side
+and a change to one source rebuilds only its library.  A build runs at
 first use — never at import, so the CPU tests import this module on
 machines without ``nvcc`` — into ``dbeel_tpu_torch/build/`` (listed in
 ``.gitignore``), under a name carrying the source's hash so a stale
@@ -54,7 +54,7 @@ launches: Dict[str, int] = {
     name: 0
     for name in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K8c",
-        "K8d", "K9a", "K9b",
+        "K8d", "K9b",
     )
 }
 _launches_lock = threading.Lock()
@@ -192,12 +192,10 @@ def _bind_query(handle: ctypes.CDLL) -> None:
 
 def _bind_dist(handle: ctypes.CDLL) -> None:
     vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-    handle.dbeel_dist_splitters.argtypes = [vp, u32, u32, vp, vp]
     handle.dbeel_dist_bucket_scatter.argtypes = [
-        vp, u32, vp, u32, u32, vp, vp, vp,
+        vp, u32, vp, u32, u32, vp, vp, vp, vp,
     ]
-    for fn in (handle.dbeel_dist_splitters, handle.dbeel_dist_bucket_scatter):
-        fn.restype = ctypes.c_int
+    handle.dbeel_dist_bucket_scatter.restype = ctypes.c_int
 
 
 def lib() -> ctypes.CDLL:

@@ -6,9 +6,11 @@ all runs, followed by an adjacent-equality pass that marks every later
 copy of a key.  In ``dbeel_tpu`` the sort is XLA's own ``lax.sort``
 (``_sort_kernel`` :35) and the pass ``_same_key_mask`` (:42); here both
 are one hand-written CUDA entry, ``dbeel_bitonic_sort_dedup_cols`` in
-``csrc/bitonic.cu``: the columns staged into rows, the 8-word bitonic
-network with one-row runs (K5's network, P = 1), the sorted rows
-written back as columns with the 5-column ``same`` flags.
+``csrc/bitonic.cu``: the 8-word bitonic network with one-row runs on
+K5's schedule (``k5_merge_rows``, P = 1; 19 launches at 2^19 rows),
+whose first launch reads the nine columns into rows in shared memory
+and whose last writes the sorted rows back as columns with the
+5-column ``same`` flags.
 
 Sort key tuple, ascending (all u32):
     k0..k3   big-endian words of the 16-byte key prefix
@@ -74,7 +76,9 @@ def sort_dedup_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7 — replaces dbeel_tpu/ops/merge.py:35 _sort_kernel (lax.sort of
     9 operands on 8 keys) and :42 _same_key_mask: the sorted (9, N)
-    columns and the same-key flags (N,) bool.  Bound (bytes): the
+    columns and the same-key flags (N,) bool.  On the card K5's
+    schedule with a column prologue and epilogue, 1 + 2 log2(N / 1024)
+    launches up to N = 2^19 (csrc/bitonic.cu).  Bound (bytes): the
     columns read once, the sorted columns and the flags written once —
     at 2^19 rows 18 MiB + 18 MiB + 0.5 MiB, about 11.4 µs at
     3.35 TB/s."""

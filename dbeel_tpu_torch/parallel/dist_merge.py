@@ -6,10 +6,11 @@ runs on each (``_per_device``, in order):
 
   1. local sort of the partition's slice (K5, ``ops/bitonic.py``)
   2. samples: the sorted first key word at ``arange(32) * m // 32``,
-     gathered from every partition (all_gather), and identical
-     splitters chosen from them on every partition (K9a)
-  3. bucket + count + overflow + layout of the fixed-capacity,
-     sentinel-padded send rows (K9b), then the all_to_all exchange
+     gathered from every partition (all_gather)
+  3. splitters chosen from the gathered samples, identical on every
+     partition, then bucket + count + overflow + layout of the
+     fixed-capacity, sentinel-padded send rows — one launch (K9b) —
+     then the all_to_all exchange
   4. final local sort of the received key range (K5) + duplicate flags
 
 Partitioning is by the first 4 key bytes (word k0); entries with equal
@@ -28,9 +29,11 @@ one card, which a repeated-device mesh needs — but device copies
 between the partitions' tensors: ``Tensor.copy_`` when both lie on one
 card (one stream, so in order), and a peer copy when they lie on two,
 which first waits on an event recorded on the source card's stream.
-K9a and K9b are CUDA kernels in ``csrc/dist.cu``; each has a plain
-PyTorch version here (the JAX body's own formulation: bucket by
-comparison, counts, cumsum, scatter) used for CPU tensors.
+K9b is a CUDA kernel in ``csrc/dist.cu`` whose blocks pick the
+splitters from the samples themselves (K9a, the pick, has no launch of
+its own); the pick and the scatter each have a plain PyTorch version
+here (the JAX body's own formulation: sort and slice; bucket by
+comparison, counts, cumsum, scatter), used for CPU tensors.
 """
 
 from __future__ import annotations
@@ -65,13 +68,13 @@ dist_stats = {"runs": 0, "fallbacks": 0, "overflow_rows": 0}
 
 
 # ----------------------------------------------------------------------
-# K9a / K9b: plain versions and kernel wrappers
+# The splitter pick and K9b: plain versions and the kernel wrapper
 # ----------------------------------------------------------------------
 
 
 def splitters_plain(samples: torch.Tensor, n_dev: int) -> torch.Tensor:
-    """K9a's plain version: the samples sorted as unsigned words, every
-    32nd kept (dist_merge.py:84-86)."""
+    """The splitter pick's plain version (K9a): the samples sorted as
+    unsigned words, every 32nd kept (dist_merge.py:84-86)."""
     ordered = torch.sort(_u64(samples)).values
     step = ordered.shape[0] // n_dev
     return _from_u64(ordered[step - 1 :: step][: n_dev - 1])
@@ -108,64 +111,62 @@ def bucket_scatter_plain(
     return send, overflow
 
 
-def splitters_kernel(samples: torch.Tensor, n_dev: int) -> torch.Tensor:
-    """K9a — replaces the splitter step of dbeel_tpu/parallel/
-    dist_merge.py:_per_device (:76-86, jnp.sort of the all_gathered
-    samples): (n_dev * 32,) samples → (n_dev - 1,) splitters.  One
-    block; 128 words at n_dev = 4, launch-bound."""
-    s = samples.shape[0]
-    if n_dev < 2 or s != n_dev * _NUM_SAMPLES or s > 6144:
-        raise ValueError(f"K9a wants n_dev * 32 samples (n_dev in 2..192), "
-                         f"got {s} for n_dev {n_dev}")
-    _check("samples", samples, (s,))
-    if _device_kind(samples) == "cpu":
-        return splitters_plain(samples, n_dev)
-    out = torch.empty(n_dev - 1, dtype=torch.int32, device=samples.device)
-    with torch.cuda.device(samples.device):
-        rc = _cuda.dist_lib().dbeel_dist_splitters(
-            samples.data_ptr(), s, n_dev, out.data_ptr(), _stream(samples),
-        )
-    _cuda.check(rc, "splitters_kernel")
-    _cuda.count("K9a")
-    return out
+def pick_scatter_plain(
+    local: torch.Tensor, samples: torch.Tensor, capacity: int, n_dev: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9b's plain version from the samples: the plain pick, then the
+    plain scatter — (send, overflow, splitters)."""
+    spl = splitters_plain(samples, n_dev)
+    return (*bucket_scatter_plain(local, spl, capacity, n_dev), spl)
 
 
 def bucket_scatter_kernel(
     local: torch.Tensor,  # (m, 9) u32 bits, sorted rows
-    splitters: torch.Tensor,  # (n_dev - 1,)
+    samples: torch.Tensor,  # (n_dev * 32,) the gathered samples
     capacity: int,
     n_dev: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9b — replaces the bucket/scatter step of dbeel_tpu/parallel/
-    dist_merge.py:_per_device (:88-102): the sorted local rows laid
-    out as the (n_dev, capacity, 9) send buffer, and the overflow
-    count (1,).  On the card one launch: a block per chunk of a
-    bucket's slot finds the bucket's run of rows by a warp-wide search
-    and copies it as one word range in 16-byte stores, then the
-    sentinel (csrc/dist.cu).  Bound (bytes): the local rows read once,
-    the send buffer written once — at m = 131072, capacity = 65568,
-    n_dev = 4, 4.7 MB + 9.4 MB, about 4.2 µs at 3.35 TB/s."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9b — replaces the splitter and bucket/scatter steps of
+    dbeel_tpu/parallel/dist_merge.py:_per_device (:76-102): the
+    splitters picked from the gathered samples, the sorted local rows
+    laid out as the (n_dev, capacity, 9) send buffer, and the overflow
+    count (1,).  Returns (send, overflow, splitters (n_dev - 1,)).  On
+    the card one launch: every block orders the samples (in a warp's
+    registers up to 256 of them, in shared memory above) and takes the
+    splitters it needs (the pick, K9a, has no launch of its own), finds
+    its bucket's run of rows by a warp-wide
+    search and copies it as one word range in 16-byte stores, then the
+    sentinel; block (0, 0) writes the overflow and the splitters
+    (csrc/dist.cu).  Bound (bytes): the local rows read once, the send
+    buffer written once — at m = 131072, capacity = 65568, n_dev = 4,
+    4.7 MB + 9.4 MB, about 4.2 µs at 3.35 TB/s."""
     m = local.shape[0]
+    s = samples.shape[0]
     if not 2 <= n_dev <= 192 or capacity < 1:
         raise ValueError(f"K9b: n_dev {n_dev}, capacity {capacity}")
+    if s != n_dev * _NUM_SAMPLES:
+        raise ValueError(f"K9b wants n_dev * 32 samples, got {s} for "
+                         f"n_dev {n_dev}")
     if max(m, capacity) * NUM_COLS >= 1 << 32:
         raise ValueError(f"K9b: {m} rows or capacity {capacity} past "
                          "32-bit word offsets")
     _check("local", local, (m, NUM_COLS))
-    _check("splitters", splitters, (n_dev - 1,))
-    if _device_kind(local, splitters) == "cpu":
-        return bucket_scatter_plain(local, splitters, capacity, n_dev)
+    _check("samples", samples, (s,))
+    if _device_kind(local, samples) == "cpu":
+        return pick_scatter_plain(local, samples, capacity, n_dev)
     send = torch.empty((n_dev, capacity, NUM_COLS), dtype=torch.int32,
                        device=local.device)
     overflow = torch.empty(1, dtype=torch.int32, device=local.device)
+    spl = torch.empty(n_dev - 1, dtype=torch.int32, device=local.device)
     with torch.cuda.device(local.device):
         rc = _cuda.dist_lib().dbeel_dist_bucket_scatter(
-            local.data_ptr(), m, splitters.data_ptr(), n_dev, capacity,
-            send.data_ptr(), overflow.data_ptr(), _stream(local),
+            local.data_ptr(), m, samples.data_ptr(), n_dev, capacity,
+            send.data_ptr(), overflow.data_ptr(), spl.data_ptr(),
+            _stream(local),
         )
     _cuda.check(rc, "bucket_scatter_kernel")
     _cuda.count("K9b")
-    return send, overflow
+    return send, overflow, spl
 
 
 # ----------------------------------------------------------------------
@@ -239,11 +240,11 @@ def _per_device(blocks: List[torch.Tensor], mesh: Mesh, capacity: int,
         pos = torch.arange(_NUM_SAMPLES, device=block.device) * m // _NUM_SAMPLES
         locals_.append(local)
         samples.append(local[pos, 0])
-    gathered = [_all_gather(samples, dev) for dev in devs]
-    splitters = [splitters_kernel(g, n_dev) for g in gathered]
     sends, overflows = [], []
-    for local, spl in zip(locals_, splitters):
-        send, over = bucket_scatter_kernel(local, spl, capacity, n_dev)
+    for local, dev in zip(locals_, devs):
+        send, over, _ = bucket_scatter_kernel(
+            local, _all_gather(samples, dev), capacity, n_dev
+        )
         sends.append(send)
         overflows.append(over)
     outs, sames = [], []

@@ -1,4 +1,5 @@
-"""dbeel_tpu_torch's distributed merge (K9a/K9b, the mesh sample sort),
+"""dbeel_tpu_torch's distributed merge (K9b with its splitter pick, the
+mesh sample sort),
 its K7 sort + dedup and the mesh pipeline, against dbeel_tpu's.
 
 The same seeded numpy inputs go through dbeel_tpu on JAX-CPU (the 8
@@ -177,8 +178,8 @@ def test_build_stack_bit_equal(n, n_dev):
 @pytest.mark.parametrize("shape", sorted(INPUTS))
 def test_dist_kernel_outputs_bit_equal(shape, n_dev):
     """(out, same, overflow) of the port's _dist_kernel equal JAX's
-    shard_map program: the K5 local sorts, K9a's unsigned splitters,
-    K9b's buckets, drops and overflow, and both exchanges."""
+    shard_map program: the K5 local sorts, K9b's unsigned splitters,
+    buckets, drops and overflow, and both exchanges."""
     jc, tc = _both(INPUTS[shape](n_dev))
     stack = jdm.build_stack(jc, n_dev)
     m = stack.shape[0] // n_dev
@@ -238,15 +239,43 @@ def _warp_search(m, pred):
     return lo, rounds
 
 
-def _kernel_model(local, splitters, capacity, n_dev):
-    """csrc/dist.cu's K9b in numpy.  Each bucket's run of rows comes
-    from the warp-wide searches (nvalid, starts[b], starts[b+1]); its
-    slot of capacity * 9 words is written as the head words before the
-    first 16-byte boundary (the send buffer starts on one), 16-byte
-    vectors and the tail words, a word being the run's next word while
-    the run lasts and the sentinel after it.  The overflow sums every
-    bucket's excess over the buckets' searched ends.  Asserts that
-    every slot word is written once and no load leaves the run."""
+def _order_samples_model(samples):
+    """csrc/dist.cu order_samples: the bitonic network over the samples
+    as unsigned words, padded with 0xFFFFFFFF to a power of two, stage
+    by stage (one warp's registers run it up to 256 words, the block's
+    shared memory above; the network is the same)."""
+    s = samples.shape[0]
+    n = 1 << (s - 1).bit_length()
+    buf = np.full(n, SENT, np.uint64)
+    buf[:s] = samples
+    q = np.arange(n // 2)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j:
+            lo = ((q & ~(j - 1)) << 1) | (q & (j - 1))
+            a, c = buf[lo], buf[lo + j]
+            swap = (a > c) == ((lo & k) == 0)
+            buf[lo], buf[lo + j] = np.where(swap, c, a), np.where(swap, a, c)
+            j //= 2
+        k *= 2
+    return buf
+
+
+def _kernel_model(local, samples, capacity, n_dev):
+    """csrc/dist.cu's K9b in numpy.  Its prologue orders the gathered
+    samples (``_order_samples_model``) and takes splitter j as word
+    (j+1) * 32 - 1 of them.  Each bucket's run of rows comes from the
+    warp-wide searches (nvalid, starts[b], starts[b+1]); its slot of
+    capacity * 9 words is written as the head words before the first
+    16-byte boundary (the send buffer starts on one), 16-byte vectors
+    and the tail words, a word being the run's next word while the run
+    lasts and the sentinel after it.  The overflow sums every bucket's
+    excess over the buckets' searched ends.  Asserts that every slot
+    word is written once and no load leaves the run.  Returns (send,
+    overflow, splitters)."""
+    ordered = _order_samples_model(samples)
+    splitters = ordered[32 * np.arange(1, n_dev) - 1].astype(np.uint32)
     m = local.shape[0]
     flat = local.reshape(-1)
     nvalid, _ = _warp_search(m, lambda r: local[r, 4] != SENT)
@@ -288,7 +317,19 @@ def _kernel_model(local, splitters, capacity, n_dev):
             x = head + 4 * v
             store(x, [load(x + i) for i in range(4)])
     assert (writes == 1).all()
-    return send.reshape(n_dev, capacity, 9), np.array([over], np.uint32)
+    return (send.reshape(n_dev, capacity, 9), np.array([over], np.uint32),
+            splitters)
+
+
+def _jax_splitters(samples, n_dev):
+    """The JAX body's splitter step (dbeel_tpu/parallel/dist_merge.py
+    :83-86, inside _per_device's shard_map) on JAX-CPU: the gathered
+    samples sorted, every step-th kept."""
+    import jax.numpy as jnp
+
+    all_samples = jnp.sort(jnp.asarray(samples))
+    step = all_samples.shape[0] // n_dev
+    return np.asarray(all_samples[step - 1 :: step][: n_dev - 1])
 
 
 def _jax_bucket_scatter(local, splitters, capacity, n_dev):
@@ -355,21 +396,27 @@ K9B_EDGES = ["empty_bucket", "one_bucket_overflow", "nvalid_0", "nvalid_m",
              "m_capacity_odd", "view_off_16b", "n_dev_2", "n_dev_8"]
 
 
+def _samples_for(splitters, rng):
+    """Gathered samples whose splitters are ``splitters`` (ascending):
+    32 copies of each and of 0xFFFFFFFF, shuffled."""
+    vals = np.repeat(np.append(splitters, np.uint32(SENT)), 32)
+    return rng.permutation(vals).astype(np.uint32)
+
+
 @pytest.mark.parametrize("seed", list(range(6)) + K9B_EDGES)
 def test_k9_plain_versions_and_kernel_design(seed):
-    """K9a sorts as unsigned words; K9b's plain scatter, the JAX body's
-    own bucket + scatter and a numpy model of the CUDA kernel's design
-    (searched runs, range copies, sentinel fill) agree on sorted stacks
-    with ties across splitters, high words, sentinel padding and
-    overflow (the seeds), and on K9b's edge cases."""
+    """The splitter pick sorts as unsigned words; K9b's wrapper on CPU
+    tensors (the plain pick and scatter), the JAX body's own bucket +
+    scatter and a numpy model of the CUDA kernel's design (the samples
+    ordered in the prologue, searched runs, range copies, sentinel
+    fill) agree on sorted stacks with ties across splitters, high
+    words, sentinel padding and overflow (the seeds), and on K9b's edge
+    cases, whose samples are made to give their splitters."""
     if isinstance(seed, int):
         rng = np.random.default_rng(seed)
         n_dev = [2, 4, 8][seed % 3]
         samples = rng.choice(_K9_WORDS, size=n_dev * 32).astype(np.uint32)
-        spl = tdm.splitters_plain(
-            torch.from_numpy(samples.view(np.int32)), n_dev)
         want = np.sort(samples)[31::32][: n_dev - 1]
-        np.testing.assert_array_equal(_u32(spl), want)
         m = 512
         local = _sorted_local(rng, m, int(rng.integers(0, m + 1)), _K9_WORDS)
         capacity = [m // n_dev, 2 * m // n_dev + 32, 40][seed % 3]
@@ -377,13 +424,16 @@ def test_k9_plain_versions_and_kernel_design(seed):
     else:
         rng = np.random.default_rng(K9B_EDGES.index(seed) + 100)
         n_dev, local, want, capacity, cut = _k9b_edge(seed, rng)
-        spl = torch.from_numpy(want.view(np.int32))
+        samples = _samples_for(want, rng)
+    smp = torch.from_numpy(samples.view(np.int32))
+    np.testing.assert_array_equal(_u32(tdm.splitters_plain(smp, n_dev)), want)
     stack = torch.from_numpy(local.view(np.int32))[cut:]
-    send, over = tdm.bucket_scatter_plain(stack, spl, capacity, n_dev)
+    send, over, spl = tdm.bucket_scatter_kernel(stack, smp, capacity, n_dev)
     view = local[cut:]
     j_send, j_over = _jax_bucket_scatter(view, want, capacity, n_dev)
-    k_send, k_over = _kernel_model(view, want, capacity, n_dev)
-    for got, other in ((_u32(send), j_send), (_u32(over), j_over),
+    k_send, k_over, k_spl = _kernel_model(view, samples, capacity, n_dev)
+    for got, other in ((_u32(spl), want), (k_spl, want),
+                       (_u32(send), j_send), (_u32(over), j_over),
                        (_u32(send), k_send), (_u32(over), k_over)):
         np.testing.assert_array_equal(got, other)
     if seed == "empty_bucket":
@@ -394,20 +444,49 @@ def test_k9_plain_versions_and_kernel_design(seed):
         assert (_u32(send) == SENT).all() and int(_u32(over)[0]) == 0
 
 
+@pytest.mark.parametrize("n_dev", [2, 4, 8, 192])
+@pytest.mark.parametrize("seed", range(2))
+def test_k9b_splitter_pick_equals_sort_and_jax(n_dev, seed):
+    """The fused prologue's pick (the bitonic network, in one warp's
+    registers up to 256 samples and in shared memory above: n_dev 192
+    pads 6144 samples to 8192) equals
+    np.sort(samples)[31::32][:n_dev-1], the plain pick and the JAX
+    body's own splitter step, on samples of few values (runs of equal
+    samples across the splitter positions) and of random words."""
+    rng = np.random.default_rng(seed)
+    s = n_dev * 32
+    if seed == 0:
+        samples = rng.choice(_K9_WORDS, size=s).astype(np.uint32)
+    else:
+        samples = rng.integers(0, 1 << 32, size=s, dtype=np.uint64)
+        samples = samples.astype(np.uint32)
+    want = np.sort(samples)[31::32][: n_dev - 1]
+    local = _sorted_local(rng, 256, 200, _K9_WORDS)
+    _, _, k_spl = _kernel_model(local, samples, 64, n_dev)
+    plain = tdm.splitters_plain(torch.from_numpy(samples.view(np.int32)),
+                                n_dev)
+    for got in (k_spl, _u32(plain), _jax_splitters(samples, n_dev)):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_k9_wrappers_refuse_bad_operands():
+    stack = torch.zeros((64, 9), dtype=torch.int32)
+    # The pick's sample count: n_dev * 32, n_dev in 2..192.
     with pytest.raises(ValueError):
-        tdm.splitters_kernel(torch.zeros(60, dtype=torch.int32), 2)
+        tdm.bucket_scatter_kernel(stack, torch.zeros(60, dtype=torch.int32),
+                                  40, 2)
     with pytest.raises(ValueError):
-        tdm.splitters_kernel(torch.zeros(32, dtype=torch.int32), 1)
+        tdm.bucket_scatter_kernel(stack, torch.zeros(32, dtype=torch.int32),
+                                  40, 1)
     with pytest.raises(ValueError):
         tdm.bucket_scatter_kernel(
             torch.zeros((64, 8), dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32), 40, 2,
+            torch.zeros(64, dtype=torch.int32), 40, 2,
         )
     with pytest.raises(ValueError):
         tdm.bucket_scatter_kernel(
             torch.zeros((64, 9), dtype=torch.int64),
-            torch.zeros(1, dtype=torch.int32), 40, 2,
+            torch.zeros(64, dtype=torch.int32), 40, 2,
         )
 
 
@@ -773,8 +852,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(INPUTS))
 def test_cuda_mesh_equals_cpu_mesh(cuda_device, shape):
-    """The sharded program on four partitions of the card (K5, K9a,
-    K9b and the copies) equals the plain versions' on the CPU."""
+    """The sharded program on four partitions of the card (K5, K9b
+    and the copies) equals the plain versions' on the CPU."""
     _, tc = _both(INPUTS[shape](4))
     stack = tdm.build_stack(tc, 4)
     m = stack.shape[0] // 4
@@ -791,19 +870,23 @@ def test_cuda_mesh_equals_cpu_mesh(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(3))
 def test_cuda_k7_k9_equal_plain(cuda_device, seed):
+    """K9b's one launch from the gathered samples — send buffer,
+    overflow word and the splitters block (0, 0) writes — and K7,
+    bit-equal to their plain versions on the card."""
     rng = np.random.default_rng(seed)
     n_dev = 4
     words = np.array([0, 0x7FFFFFFF, 0x80000000, 0xC0000000, SENT],
                      dtype=np.uint64)
     samples = to_tensor(rng.choice(words, size=128).astype(np.uint32),
                         cuda_device)
-    spl = tdm.splitters_kernel(samples, n_dev)
-    assert torch.equal(spl, tdm.splitters_plain(samples, n_dev))
     local = to_tensor(_sorted_local(rng, 4096, 3000 + seed, words),
                       cuda_device)
     for capacity in (1024, 2080, 300):
-        for g, w in zip(tdm.bucket_scatter_kernel(local, spl, capacity, n_dev),
-                        tdm.bucket_scatter_plain(local, spl, capacity, n_dev)):
+        before = tdm._cuda.launches["K9b"]
+        got = tdm.bucket_scatter_kernel(local, samples, capacity, n_dev)
+        assert tdm._cuda.launches["K9b"] == before + 1
+        want = tdm.pick_scatter_plain(local, samples, capacity, n_dev)
+        for g, w in zip(got, want):
             assert torch.equal(g, w)
     cols = rng.integers(0, 3, (9, 1 << 12), dtype=np.uint64).astype(np.uint32)
     cols[8] = rng.permutation(1 << 12).astype(np.uint32)
@@ -817,13 +900,33 @@ def test_cuda_k7_k9_equal_plain(cuda_device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", K9B_EDGES)
 def test_cuda_k9b_edges_equal_plain(cuda_device, name):
-    """K9b's edge cases on the card: send buffer and overflow word
-    bit-equal to the plain version."""
+    """K9b's edge cases on the card, from samples made to give their
+    splitters: send buffer, overflow word and splitters bit-equal to
+    the plain version."""
     rng = np.random.default_rng(K9B_EDGES.index(name) + 100)
     n_dev, local, spl, capacity, cut = _k9b_edge(name, rng)
     stack = to_tensor(local, cuda_device)[cut:]
-    s = to_tensor(spl, cuda_device)
-    for g, w in zip(tdm.bucket_scatter_kernel(stack, s, capacity, n_dev),
-                    tdm.bucket_scatter_plain(stack, s, capacity, n_dev)):
+    s = to_tensor(_samples_for(spl, rng), cuda_device)
+    got = tdm.bucket_scatter_kernel(stack, s, capacity, n_dev)
+    assert np.array_equal(_u32(got[2].cpu()), spl)
+    for g, w in zip(got, tdm.pick_scatter_plain(stack, s, capacity, n_dev)):
         assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev", [2, 3, 8, 9, 16, 192])
+def test_cuda_k9b_pick_equals_plain(cuda_device, n_dev):
+    """The fused pick on the card at every way it orders the samples:
+    one warp's registers at 2, 4 and 8 words a lane (n_dev 2, 3 and 8)
+    and shared memory (n_dev 9, 16 and 192: 288, 512 and 6144 samples),
+    on random words and on runs of equal samples."""
+    rng = np.random.default_rng(n_dev)
+    local = to_tensor(_sorted_local(rng, 8192, 8000, _K9_WORDS), cuda_device)
+    for draw in (rng.integers(0, 1 << 32, size=n_dev * 32, dtype=np.uint64),
+                 rng.choice(_K9_WORDS, size=n_dev * 32)):
+        s = to_tensor(draw.astype(np.uint32), cuda_device)
+        got = tdm.bucket_scatter_kernel(local, s, 100, n_dev)
+        for g, w in zip(got, tdm.pick_scatter_plain(local, s, 100, n_dev)):
+            assert torch.equal(g, w)
     torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """dbeel_tpu_torch's flush sort (K5, ops/sort.py) and hash memtable
-against dbeel_tpu's.
+against dbeel_tpu's, and K7 (ops/merge.py) against K5, whose schedule
+it runs on the card.
 
 The same seeded numpy inputs go through the JAX functions (on the CPU
 backend) and the port on ``cpu`` tensors, which run K5's plain PyTorch
@@ -23,6 +24,7 @@ from dbeel_tpu.ops import bitonic as jb
 from dbeel_tpu.ops import sort as jsort
 from dbeel_tpu.storage import LSMTree as JTree
 from dbeel_tpu_torch.ops import bitonic as tb
+from dbeel_tpu_torch.ops import merge as tmerge
 from dbeel_tpu_torch.ops import sort as tsort
 from dbeel_tpu_torch.storage import LSMTree as TTree
 from dbeel_tpu_torch.storage.compaction import get_strategy as tget
@@ -97,7 +99,7 @@ def _tie_stack(rng, k, p):
     return st
 
 
-# K5's tile on the card (Tile<9>::rows in csrc/bitonic.cu): N at half a
+# K5's tile on the card (kTile in csrc/bitonic.cu): N at half a
 # tile (one launch), one tile, two (one level past the tile) and four;
 # one-row runs (sort_stack_kernel) and K = 4 runs of N/4 rows (at 4
 # tiles the first launch runs no level).
@@ -121,6 +123,36 @@ def test_k5_plain_equals_jax_at_tile_sizes(n, p_kind):
     np.testing.assert_array_equal(got_same.numpy(), np.asarray(want_same))
     # The flags mark whole-row ties; the sentinel tail is never flagged.
     assert got_same.any() and not got_same[n - n // 8:].any()
+
+
+def _k7_rows(rng, n):
+    """(N, 9) rows for K7: cols 0-7 from {0, 1} (ties on all 8 key
+    columns), col 8 distinct, and a sentinel tail of max(2, N/8) rows
+    (K7's padding: every word 0xFFFFFFFF)."""
+    rows = rng.integers(0, 2, size=(n, 9), dtype=np.uint64).astype(np.uint32)
+    rows[:, 8] = rng.permutation(n).astype(np.uint32)
+    rows[n - max(2, n // 8):] = SENT
+    return rows
+
+
+@pytest.mark.parametrize("n", [8, 1024, 2048, 1 << 13])
+def test_k7_plain_is_k5_with_its_own_flags(n):
+    """K7 runs K5's schedule with P = 1 (csrc/bitonic.cu k5_merge_rows):
+    on the same rows, sort_dedup_plain's columns are merge_rows_plain's
+    rows transposed, and its flags (_same_key_mask: words 0-4 equal to
+    the previous row's, no sentinel check) are K5's except on an
+    all-sentinel row after another, where K7 flags 1 and K5 0."""
+    rows = _k7_rows(np.random.default_rng(700 + n), n)
+    x = tb.to_tensor(rows, "cpu")
+    k5_out, k5_same = tb.merge_rows_plain(x[:, None])
+    k7_out, k7_same = tmerge.sort_dedup_plain(x.t().contiguous())
+    assert torch.equal(k7_out, k5_out.t())
+    sent = (k5_out == -1).all(dim=1)
+    after = sent & torch.cat([torch.zeros(1, dtype=torch.bool), sent[:-1]])
+    assert int(after.sum()) == max(2, n // 8) - 1
+    assert not k5_same[after].any() and k7_same[after].all()
+    assert torch.equal(k7_same, k5_same | after)
+    assert k5_same.any()  # the ties are flagged by both
 
 
 def _items(seed, n, long_share=0.2):
@@ -361,5 +393,22 @@ def test_cuda_k5_long_runs_equal_plain(cuda_device, k, p):
     st = tb.to_tensor(_tie_stack(np.random.default_rng(k), k, p),
                       cuda_device)
     for g, w in zip(tb.merge_runs_kernel(st), tb.merge_rows_plain(st)):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 1024, 2048, 1 << 19, 1 << 20])
+def test_cuda_k7_schedule_equals_plain(cuda_device, n):
+    """K7 on K5's schedule, one call and one count, bit-equal to
+    sort_dedup_plain: N of one tile's first launch alone (8, 1024), one
+    level past the tile (2048), the main path's 2^19 and 2^20, whose
+    last level runs its strides of a tile or more one launch each."""
+    cols = tb.to_tensor(_k7_rows(np.random.default_rng(n), n).T.copy(),
+                        cuda_device)
+    before = tb.launches["K7"]
+    got = tmerge.sort_dedup_kernel(cols)
+    assert tb.launches["K7"] == before + 1
+    for g, w in zip(got, tmerge.sort_dedup_plain(cols)):
         assert torch.equal(g, w)
     torch.cuda.synchronize()
