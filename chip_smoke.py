@@ -47,6 +47,9 @@ Phases (any failure exits non-zero):
                 get_strategy("device") through the pipeline (K1), plus a
                 dense-cluster keyspace whose partitions keep the exact
                 2-word operand (K2); SHA-256 equal to the host merge.
+                The bench runs are also merged by get_strategy("native"),
+                the C++ k-way merge bench.py measures against, SHA-256
+                equal too; the three keys/s are logged side by side.
   4. lsm      — LSMTree write → flush → major compact → get on two
                 keyspaces: diverse 8-byte prefixes (the single-shot K3
                 route alone) and shared 8-byte prefixes (K3, then the
@@ -85,16 +88,34 @@ Phases (any failure exits non-zero):
                 the first partition's card, equal to numpy; mesh_big —
                 phase 3's 10M docs through the mesh pipeline (K1, one
                 slot per partition), SHA-256 equal to phase 3's merge.
+  8. arena    — one shard as the server's defaults build it:
+                LSMTree(memtable_kind="auto") resolves to the C++ arena
+                memtable (asserted), 8192 entries, compaction through
+                get_strategy("auto") on the card.  393216 ops (phase 5's
+                recipe with 1% overwrites and 0.5% deletes) flush
+                natively, each in one single-pass call (inline .sums,
+                asserted by compaction_stats); the flushed tables and the
+                major compaction (K3, K4 where prefixes tie) are SHA-256
+                equal to a sorted-memtable twin merged by the cpu
+                strategy; every key and 10000 absent ones agree with a
+                dict oracle.  A durable leg: a wal_sync tree (200 us
+                delay) takes 16384 writes from 64 concurrent tasks
+                through the native group commit — the io_uring sync hub
+                (asserted engaged wherever the host lets it create a
+                ring; else the C sync thread, asserted, and the reason
+                logged) — in fewer syncs than writes, and its WAL
+                replays every acknowledged write after close().
 
 Phases 3-6 run on get_strategy("device"), so their routes hold on a
 host with several cards, where get_strategy("auto") is the distributed
 backend (asserted: "device" on one card, "distributed" on several).
 
-The main path is thirteen runs — the bench merge, the dense merge, the
+The main path is fourteen runs — the bench merge, the dense merge, the
 two trees' major compactions, the shards' writes with their flushes,
 the shards' compaction, the scan collection's compaction and its
-filtered scans, and the mesh phase's mesh_wide compaction, its K7
-cross-check, mesh_hot, mesh_skew and mesh_big.  The kernel launch
+filtered scans, the mesh phase's mesh_wide compaction, its K7
+cross-check, mesh_hot, mesh_skew and mesh_big, and the arena tree's
+major compaction.  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -150,6 +171,13 @@ WIDE_OPS = 64 * 8192
 WIDE_IDS = 393_216
 HOT_KEYS = 32768
 SKEW_KEYS = 65536
+# The arena phase: one shard as the server's defaults build it (the
+# memtable "auto", dbeel_tpu/config.py:198, and 8192 entries), fed the
+# shards phase's recipe; its durable leg: wal_sync with a 200 us
+# coalescing delay, 64 concurrent writers.
+ARENA_OPS = 3 * SHARD_CAPACITY
+ARENA_DURABLE = 16384
+ARENA_WRITERS = 64
 
 
 def log(msg: str) -> None:
@@ -1491,11 +1519,19 @@ def phase_compaction(torch, np, card, total_keys, strategy):
     if pipeline.pipeline_stats["runs"] == runs_before or bench["K1"] == 0:
         raise AssertionError("the bench merge did not run the pipeline/K1")
     cpu_rate, cpu_n, cpu_sha, cpu_s = _merge(get_strategy("cpu"), d, idx, 103)
+    # The C++ k-way merge: bench.py's default baseline, on the host.
+    nat_rate, nat_n, nat_sha, nat_s = _merge(
+        get_strategy("native"), d, idx, 107
+    )
     log(f"compaction {total_keys} docs on {card}: device (card pipeline) "
         f"{dev_rate:.0f} keys/s ({dev_s:.2f}s), cpu {cpu_rate:.0f} keys/s "
-        f"({cpu_s:.2f}s), entries {dev_n}, sha256 equal: {dev_sha == cpu_sha}")
+        f"({cpu_s:.2f}s), native {nat_rate:.0f} keys/s ({nat_s:.2f}s), "
+        f"entries {dev_n}, sha256 equal: "
+        f"{dev_sha == cpu_sha == nat_sha}")
     if (dev_n, dev_sha) != (cpu_n, cpu_sha):
         raise AssertionError("card merge output differs from the cpu merge")
+    if (nat_n, nat_sha) != (cpu_n, cpu_sha):
+        raise AssertionError("native merge output differs from the cpu merge")
     _profile_merge(torch, strategy, d, idx)
     runs_kept = dict(dir=d, idx=idx, sha=cpu_sha, n=cpu_n, rate=dev_rate)
 
@@ -1620,10 +1656,11 @@ def phase_lsm(np, n_ops, strategy):
 # ----------------------------------------------------------------------
 
 
-def shard_ops(np, shard, n_ops, seed=7):
+def shard_ops(np, shard, n_ops, seed=7, overwrites=0.005, deletes=0.005):
     """One shard's ops: bench.py's widths (16 B random keys, 64 B
-    values), 0.5% overwrites and 0.5% deletes of keys written earlier;
-    (key, value or None for a delete), timestamps 1000 + position."""
+    values), the given shares of overwrites and deletes of keys written
+    earlier; (key, value or None for a delete), timestamps 1000 +
+    position."""
     rng = np.random.default_rng([seed, shard])
     key_blob = rng.integers(0, 256, size=n_ops * 16, dtype=np.uint8).tobytes()
     val_blob = rng.integers(0, 256, size=n_ops * 64, dtype=np.uint8).tobytes()
@@ -1631,11 +1668,11 @@ def shard_ops(np, shard, n_ops, seed=7):
     earlier = rng.random(n_ops)
     ops = []
     for i in range(n_ops):
-        if u[i] < 0.01 and i:
+        if u[i] < deletes + overwrites and i:
             key = ops[int(earlier[i] * i)][0]
         else:
             key = key_blob[i * 16: i * 16 + 16]
-        value = None if u[i] < 0.005 and i else val_blob[i * 64: i * 64 + 64]
+        value = None if u[i] < deletes and i else val_blob[i * 64: i * 64 + 64]
         ops.append((key, value))
     return ops
 
@@ -2529,9 +2566,232 @@ def check_mesh_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 8: one shard as the server's defaults build it
+# ----------------------------------------------------------------------
 
 
-PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh")
+def _timed_native_flushes(tree):
+    """Wrap the tree's native flush to record each one's seconds (the
+    flushes run on executor threads)."""
+    took, inner = [], tree._native_flush
+
+    def timed(memtable, index):
+        t0 = time.perf_counter()
+        inner(memtable, index)
+        took.append(time.perf_counter() - t0)
+
+    tree._native_flush = timed
+    return took
+
+
+async def _durable_leg(np, d, n_writes, n_writers, tree_kw):
+    """Durable writes from concurrent tasks into a wal_sync tree: acks
+    wait on the native group commit — the io_uring sync hub wherever
+    the host lets it create a ring, else the C sync thread.  Returns the
+    backend, writes/s, the syncs it took, the acknowledged writes and
+    those the closed WAL lost."""
+    from dbeel_tpu_torch.storage import LSMTree, native
+    from dbeel_tpu_torch.storage import wal as wal_mod
+
+    hub = wal_mod._SyncHub.get(native.load())
+    if hub is not None:
+        backend = "io_uring sync hub"
+    else:
+        try:
+            with open("/proc/sys/kernel/io_uring_disabled") as f:
+                why = f"kernel.io_uring_disabled={f.read().strip()}"
+        except OSError:
+            why = "no kernel.io_uring_disabled"
+        backend = ("C sync thread (dbeel_walsync_hub_new gave no ring: "
+                   f"io_uring refused on this host, kernel "
+                   f"{os.uname().release}, {why})")
+    # Room for every write in one memtable and its one WAL.
+    tree = LSMTree.open_or_create(
+        d, capacity=2 * n_writes, wal_sync=True, wal_sync_delay_us=200,
+        memtable_kind="auto", **tree_kw,
+    )
+    syncer = tree._wal._syncer
+    if (tree.memtable_kind != "arena" or syncer is None
+            or (syncer._hub is None) != (hub is None)):
+        raise AssertionError(
+            f"durable tree: memtable {tree.memtable_kind}, syncer "
+            f"{syncer}, hub {getattr(syncer, '_hub', None)} (a ring "
+            f"{'can' if hub is not None else 'cannot'} be created)"
+        )
+    rng = np.random.default_rng(8)
+    per = n_writes // n_writers
+    values = rng.integers(0, 256, size=(n_writers * per, 64), dtype=np.uint8)
+    acked = []
+
+    async def writer(w):
+        for j in range(per):
+            i = w * per + j
+            key, value = b"dur%03d-%09d" % (w, j), values[i].tobytes()
+            await tree.set_with_timestamp(key, value, 1_000 + i)
+            acked.append((key, value, 1_000 + i))
+
+    syncs0 = wal_mod.group_commit_stats()["syncs"]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(writer(w) for w in range(n_writers)))
+    rate = len(acked) / (time.perf_counter() - t0)
+    syncs = wal_mod.group_commit_stats()["syncs"] - syncs0
+    wal = tree._wal
+    tree.close()
+    # The syncer's close handshake completes on the loop.
+    for _ in range(500):
+        if wal._fd < 0:
+            break
+        await asyncio.sleep(0.01)
+    replayed = {k: (v, ts) for k, v, ts in wal_mod.replay(wal.path)}
+    lost = sum(replayed.get(k) != (v, ts) for k, v, ts in acked)
+    return backend, rate, syncs, len(acked), lost
+
+
+async def _drive_arena(torch, np, n_ops, n_durable, n_writers, device):
+    from dbeel_tpu_torch.ops import bitonic as B
+    from dbeel_tpu_torch.storage import DEFAULT_TREE_CAPACITY, LSMTree, native
+    from dbeel_tpu_torch.storage.compaction import (
+        compaction_stats,
+        get_strategy,
+    )
+    from dbeel_tpu_torch.storage.entry import file_name
+    from dbeel_tpu_torch.storage.page_cache import (
+        PageCache, PartitionPageCache,
+    )
+
+    ops = shard_ops(np, 0, n_ops, overwrites=0.01, deletes=0.005)
+    oracle = dict(ops)
+    # The tree as a shard opens it: default capacity, memtable "auto"
+    # and no strategy (get_strategy("auto") on ``device``).  On several
+    # cards auto is the mesh; the phase holds the one-card route there.
+    dev = torch.device(device)
+    tree_kw = {"device": device}
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        tree_kw["strategy"] = get_strategy("device")
+    d = os.path.join(WORK, "arena", "tree")
+    tree = LSMTree.open_or_create(
+        d, cache=PartitionPageCache("arena", PageCache(16384)),
+        capacity=DEFAULT_TREE_CAPACITY, memtable_kind="auto", **tree_kw,
+    )
+    if tree.memtable_kind != "arena" or tree.strategy.name != "device" \
+            or tree.strategy.device.type != dev.type:
+        raise AssertionError(
+            f"arena tree: memtable {tree.memtable_kind}, strategy "
+            f"{tree.strategy.name} on {tree.strategy.device}"
+        )
+    flush_s = _timed_native_flushes(tree)
+    before = compaction_stats.stats()
+    t0 = time.perf_counter()
+    await _write_tree(tree, ops)
+    await tree.flush()
+    await _settle()
+    t_write = time.perf_counter() - t0
+    after = compaction_stats.stats()
+    tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+    delta = {k: after[k] - before[k]
+             for k in ("flush_passes", "sidecar_inline", "sidecar_posthoc")}
+    log(f"arena write: {n_ops} ops in {t_write:.1f}s "
+        f"({n_ops / t_write:.0f} writes/s), {len(tables)} native flushes "
+        f"of {DEFAULT_TREE_CAPACITY} entries, flush seconds total "
+        f"{sum(flush_s):.3f} mean {sum(flush_s) / max(1, len(flush_s)):.4f} "
+        f"max {max(flush_s, default=0):.4f}; compaction stats {delta}")
+    if not (delta["flush_passes"] == delta["sidecar_inline"] == len(flush_s)
+            == len(tables)) or delta["sidecar_posthoc"]:
+        raise AssertionError(
+            f"flushes not all native and single-pass: {delta}, "
+            f"{len(flush_s)} native, {len(tables)} tables"
+        )
+
+    # The sorted-memtable twin flushes the same tables.
+    t0 = time.perf_counter()
+    twin_dir = os.path.join(WORK, "arena", "twin")
+    twin = LSMTree.open_or_create(
+        twin_dir, capacity=DEFAULT_TREE_CAPACITY, memtable_kind="sorted",
+        strategy=get_strategy("cpu"),
+    )
+    await _write_tree(twin, ops)
+    await twin.flush()
+    await _settle()
+    same_flushes = _table_digests(d) == _table_digests(twin_dir)
+    log(f"arena twin: sorted memtable {time.perf_counter() - t0:.1f}s, "
+        f"flushed tables SHA-256-equal: {same_flushes}")
+    if not same_flushes:
+        raise AssertionError("arena and sorted memtables flushed differently")
+
+    # Run arena_compact: one major compaction on the card.
+    out = max(tables) + 1
+    B.reset_launches()
+    t0 = time.perf_counter()
+    await tree.compact(tables, out, keep_tombstones=False)
+    counts = dict(B.launches)
+    t_compact = time.perf_counter() - t0
+    await twin.compact(tables, out, keep_tombstones=False)
+    digests = [
+        {ext: _table_digests(x).get(file_name(out, ext))
+         for ext in ("data", "index", "bloom", "sums")}
+        for x in (d, twin_dir)
+    ]
+    log(f"arena compact: {len(tables)} tables in {t_compact:.2f}s, "
+        f"launches {counts}; SHA-256 equal to the sorted twin's cpu merge: "
+        f"{digests[0] == digests[1]}")
+    if digests[0] != digests[1] or digests[0]["data"] is None:
+        raise AssertionError(f"compacted tables differ: {digests}")
+    twin.close()
+
+    t0 = time.perf_counter()
+    probe = list(oracle) + [b"absent-%09d" % i for i in range(10000)]
+    bad = 0
+    for key in probe:
+        if await tree.get(key) != oracle.get(key):
+            bad += 1
+    log(f"arena gets: {len(probe)} oracle gets in "
+        f"{time.perf_counter() - t0:.1f}s, mismatches {bad}")
+    tree.close()
+    if bad:
+        raise AssertionError(f"{bad} arena gets disagree with the oracle")
+
+    backend, rate, syncs, n_acked, lost = await _durable_leg(
+        np, os.path.join(WORK, "arena", "durable"), n_durable, n_writers,
+        tree_kw,
+    )
+    log(f"arena durable: group commit through the {backend}; "
+        f"{n_acked} writes from {n_writers} tasks "
+        f"{rate:.0f} writes/s, {syncs} group-commit syncs "
+        f"({syncs / max(1, n_acked):.4f} a write), lost after close {lost}; "
+        f"odirect_fallbacks {native.odirect_fallbacks()}, "
+        f"read_overlap_stats {native.read_overlap_stats()}")
+    if syncs >= n_acked or lost:
+        raise AssertionError(
+            f"durable leg: {syncs} syncs for {n_acked} writes, {lost} lost"
+        )
+    return {"arena_compact": counts}
+
+
+def phase_arena(torch, np, n_ops=ARENA_OPS, n_durable=ARENA_DURABLE,
+                n_writers=ARENA_WRITERS, device="cuda"):
+    """Returns the launch counts of the arena tree's major compaction."""
+    t0 = time.perf_counter()
+    runs = asyncio.run(
+        _drive_arena(torch, np, n_ops, n_durable, n_writers, device)
+    )
+    shutil.rmtree(os.path.join(WORK, "arena"))
+    log(f"arena: {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_arena_launches(runs):
+    """The arena tree's compaction (< 64 MiB) takes K3's single-shot
+    route (K4 where prefixes tie) and no other kernel."""
+    got = runs["arena_compact"]
+    rest = {k: v for k, v in got.items() if k not in ("K3", "K4")}
+    if got.get("K3", 0) == 0 or any(rest.values()):
+        raise AssertionError(f"arena_compact launches {got}")
+
+
+# ----------------------------------------------------------------------
+
+
+PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena")
 
 
 def main(argv=None) -> int:
@@ -2607,6 +2867,10 @@ def main(argv=None) -> int:
             runs.update(mesh_runs)
         elif bench is not None:
             shutil.rmtree(bench["dir"])
+        if "arena" in only:
+            arena_runs = phase_arena(torch, np)
+            check_arena_launches(arena_runs)
+            runs.update(arena_runs)
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.

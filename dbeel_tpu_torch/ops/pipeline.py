@@ -330,6 +330,32 @@ class _PipelineError(Exception):
 pipeline_stats = {"runs": 0, "declined": 0}
 
 
+# One profiler may run in a process at a time: traced merges take turns.
+_trace_lock = threading.Lock()
+
+
+def _traced(profile_dir: str, device: torch.device, run):
+    """``run()`` under torch.profiler; its Chrome trace is written to
+    ``profile_dir`` under a name unique to this merge (process id and a
+    random suffix), and its result returned unchanged."""
+    import uuid
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with _trace_lock:
+        with profile(activities=activities) as prof:
+            result = run()
+        prof.export_chrome_trace(os.path.join(
+            profile_dir,
+            f"pipeline_merge-{os.getpid()}-{uuid.uuid4().hex}.json",
+        ))
+    return result
+
+
 def pipeline_merge(
     sources: Sequence,
     dir_path: str,
@@ -349,18 +375,29 @@ def pipeline_merge(
 
     ``mesh``: a ``parallel.mesh.Mesh`` — with more than one partition
     the launch batch's J axis is split over its devices (each merges
-    its own keyspace partitions, no exchange between them)."""
-    result = _pipeline_merge_impl(
-        sources,
-        dir_path,
-        output_index,
-        keep_tombstones,
-        bloom_min_size,
-        torch.device(device),
-        throttle,
-        tombstone_drop_before,
-        mesh=mesh,
-    )
+    its own keyspace partitions, no exchange between them).
+
+    Set ``DBEEL_PROFILE_DIR`` to trace each merge with
+    ``torch.profiler`` (host activity, and the card's when ``device``
+    is one): one Chrome trace a merge is exported into that directory
+    (viewable in chrome://tracing or Perfetto)."""
+    device = torch.device(device)
+
+    def run():
+        return _pipeline_merge_impl(
+            sources,
+            dir_path,
+            output_index,
+            keep_tombstones,
+            bloom_min_size,
+            device,
+            throttle,
+            tombstone_drop_before,
+            mesh=mesh,
+        )
+
+    profile_dir = os.environ.get("DBEEL_PROFILE_DIR")
+    result = _traced(profile_dir, device, run) if profile_dir else run()
     pipeline_stats["runs" if result is not None else "declined"] += 1
     return result
 

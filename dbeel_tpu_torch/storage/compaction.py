@@ -14,6 +14,8 @@ merge is a strategy (SURVEY.md §7 stage 3):
                            bitonic kernels, ops/bitonic.py).
   * DistributedMergeStrategy — (dbeel_tpu_torch.parallel.dist_merge) the
                            merge as a sample sort over a mesh of cards.
+  * NativeMergeStrategy  — (dbeel_tpu_torch.storage.native) the C++ k-way
+                           heap merge of ``native/``.
 
 All strategies must produce byte-identical SSTable files — golden tests
 enforce it.  A strategy writes the ``compact_*`` triplet; the LSM tree
@@ -445,14 +447,6 @@ def _no_index_runs(index_fields) -> None:
         )
 
 
-# Backends of dbeel_tpu that later slices of the port bring over, each
-# with its ROADMAP.md item.
-_NOT_PORTED = {
-    "native": "Queue 1 item 2: the C++ k-way merge strategy "
-    "(NativeMergeStrategy)",
-}
-
-
 def _several_cards(dev) -> bool:
     """More than one card is visible and the caller named none."""
     import torch
@@ -466,6 +460,8 @@ def _several_cards(dev) -> bool:
 def get_strategy(name: str, device=None) -> CompactionStrategy:
     """Resolve a strategy by config name (config.compaction_backend).
 
+    ``native`` is the C++ k-way merge (storage/native.py); it raises
+    when the native library cannot be built.
     ``device``, ``device_full``, ``auto``, ``coalesced`` and
     ``distributed`` merge on the card — ``device`` (default ``"cuda"``)
     names it; ``"cpu"`` selects the kernels' plain PyTorch versions.
@@ -503,9 +499,9 @@ def get_strategy(name: str, device=None) -> CompactionStrategy:
         )
 
         return CoalescedDeviceMergeStrategy(default_coalescer(device))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compaction backend {name!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[name]})"
-        )
+    if name == "native":
+        from . import native
+
+        native.require()
+        return native.NativeMergeStrategy()
     raise ValueError(f"unknown compaction backend {name!r}")

@@ -19,13 +19,16 @@ then deletes WAL ``index`` (lsm_tree.rs:854-921); compaction outputs take
 ``max(inputs)+1`` (odd), which ranks them correctly between the remaining
 older and newer tables.
 
-The port has open/recover, set/delete/get, flush (sorted and hash
-memtables), compact (with the coalescer's ``merge_async``), the
+``memtable_kind="arena"`` (and ``"auto"`` once ``native/`` is built)
+keeps the memtable in the C++ arena, whose flush is one native call.
+
+The port has open/recover, set/delete/get, flush (sorted, hash and
+arena memtables), compact (with the coalescer's ``merge_async``), the
 journal, and the scan methods: ``iter``, ``scan_page`` and
 ``scan_filter_page`` over a cached columnar ``ScanStage`` whose
 numeric filter leaves run on the tree's ``device`` (ops/query_kernels,
-K8).  The arena memtable, the secondary-index runs and the digest
-methods of dbeel_tpu's LSMTree are later slices (ROADMAP.md).
+K8).  The secondary-index runs and the digest methods of dbeel_tpu's
+LSMTree are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ from .entry import (
     file_name,
 )
 from .entry_writer import EntryWriter
-from .memtable import HashMemtable, Memtable
+from .memtable import ArenaMemtable, HashMemtable, Memtable
 from .page_cache import PartitionPageCache
 from .sstable import SSTable
 
@@ -149,17 +152,21 @@ class LSMTree:
     ) -> None:
         # "sorted" = SortedDict kept ordered per insert; "hash" = O(1)
         # dict, ordered once at flush by the device sort (ops/sort.py,
-        # K5) on ``device`` — ``cuda`` unless the caller names ``cpu``.
+        # K5) on ``device`` — ``cuda`` unless the caller names ``cpu``;
+        # "arena" = the C++ arena red-black tree of native/, which
+        # writes its own flush; "auto" = "arena" when the native library
+        # is already built, else "sorted" (dbeel_tpu's resolution).  An
+        # arena memtable raises when the library cannot be built.
         if memtable_kind not in ("auto", "sorted", "hash", "arena"):
             raise ValueError(
                 f"memtable_kind must be 'auto', 'sorted', 'hash' or "
                 f"'arena', got {memtable_kind!r}"
             )
-        if memtable_kind in ("arena", "auto"):
-            raise NotImplementedError(
-                f"memtable_kind={memtable_kind!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 2: ArenaMemtable); use "
-                "'sorted' or 'hash'"
+        from . import native
+
+        if memtable_kind == "auto":
+            memtable_kind = (
+                "arena" if native.load_if_built() is not None else "sorted"
             )
         if memtable_kind == "hash":
             from ..ops._cuda import resolve_device
@@ -167,6 +174,8 @@ class LSMTree:
             self._memtable_cls = functools.partial(
                 HashMemtable, device=resolve_device(device)
             )
+        elif memtable_kind == "arena":
+            self._memtable_cls = ArenaMemtable
         else:
             self._memtable_cls = Memtable
         self.dir_path = dir_path
@@ -837,14 +846,19 @@ class LSMTree:
             flushing = self._flushing
             assert flushing is not None
             # Write off-loop: the flushing memtable is no longer
-            # mutated, so the worker may read it.
-            try:
-                await asyncio.get_event_loop().run_in_executor(
-                    None,
-                    lambda: self._write_sstable_from_items(
+            # mutated, so the worker may read it.  An arena memtable
+            # writes the triplet, bloom and .sums in one GIL-free
+            # native call.
+            def write():
+                if getattr(flushing, "has_native_flush", False):
+                    self._native_flush(flushing, flush_index)
+                else:
+                    self._write_sstable_from_items(
                         flush_index, flushing.sorted_items()
-                    ),
-                )
+                    )
+
+            try:
+                await asyncio.get_event_loop().run_in_executor(None, write)
             except OSError as e:
                 # Sstable write failed on the disk: keep the flushing
                 # memtable + old WAL (_pending_flush retries once the
@@ -871,6 +885,27 @@ class LSMTree:
             self._is_flushing = False
             self.flush_done_event.notify()
             self.flow.notify(flow_events.FlowEvent.MEMTABLE_FLUSH_DONE)
+
+    def _native_flush(self, memtable: ArenaMemtable, index: int) -> None:
+        """The single-pass native flush of an arena memtable: the C
+        writer page-CRCs every byte as it emits it, so the ``.sums``
+        sidecar needs no re-read of the fresh triplet."""
+        from .compaction import compaction_stats
+
+        memtable.flush_to_sstable_with_sums(
+            self.dir_path, index, self.bloom_min_size
+        )
+        written = 0
+        for ext in (DATA_FILE_EXT, INDEX_FILE_EXT, BLOOM_FILE_EXT,
+                    SUMS_FILE_EXT):
+            try:
+                written += os.path.getsize(
+                    os.path.join(self.dir_path, file_name(index, ext))
+                )
+            except OSError:
+                pass  # no bloom below bloom_min_size
+        compaction_stats.note_sidecar(True)
+        compaction_stats.note_flush(written)
 
     def _write_sstable_from_items(
         self, index: int, items: Sequence[Tuple[bytes, Tuple[bytes, int]]]

@@ -1,14 +1,26 @@
-"""ctypes bindings for the C++ host runtime (``native/``) — the part the
-compaction pipeline calls.
+"""ctypes bindings for the C++ host runtime (``native/``), and the
+``native`` merge backend.
 
 ``native/`` is the shared C++ host runtime of the repository, not part
 of either Python package: it is built with ``make -C native`` into
 ``native/build/libdbeel_native.so`` on first use (under an flock, so
-concurrent processes wait for one build) and loaded as it is.  Only the
-prototypes the port calls are bound here: O_DIRECT file reads, prefix
-staging, the gather writer, the packed run-id decode and the batch
-bloom build (``ops/pipeline.py``), and the batch murmur3 hash the scan
-stage keys its arc filter on (``storage/range_digest.py``).
+concurrent processes wait for one build) and loaded as it is.  The port
+binds what it calls:
+
+* the compaction pipeline's O_DIRECT reads, prefix staging, gather
+  writer, packed run-id decode and batch bloom build (``ops/pipeline.py``);
+* the batch murmur3 hash the scan stage keys its arc filter on
+  (``storage/range_digest.py``) and the scalar one (``utils/murmur.py``);
+* the arena memtable and its single-pass flush (``storage/memtable.py``);
+* the WAL appender, its group-commit syncer and the io_uring sync hub
+  (``storage/wal.py``);
+* the k-way merge, ``NativeMergeStrategy`` below, with its chunked and
+  overlapped file IO and the page-CRC kernel of the inline sidecar.
+
+The library must carry every one of these symbols (the current ABI); a
+library without them is not used.  The serving data plane
+(``dbeel_dp_*``) and the quorum fan-out (``dbeel_qf_*``) are bound by
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -20,6 +32,26 @@ import subprocess
 import threading
 from typing import Optional
 
+import numpy as np
+
+from .bloom import BloomFilter, _SEED1, _SEED2
+from .compaction import (
+    CompactionStrategy,
+    MergeResult,
+    _no_index_runs,
+    _write_bloom,
+)
+from .entry import (
+    COMPACT_DATA_FILE_EXT,
+    COMPACT_INDEX_FILE_EXT,
+    COMPACT_SUMS_FILE_EXT,
+    DATA_FILE_EXT,
+    INDEX_FILE_EXT,
+    PAGE_SIZE,
+    file_name,
+)
+from .file_io import PageMirroringWriter
+
 log = logging.getLogger(__name__)
 
 _NATIVE_DIR = os.path.join(
@@ -27,21 +59,107 @@ _NATIVE_DIR = os.path.join(
 )
 LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libdbeel_native.so")
 
-# The symbols the port needs; a library without them is not used.
-_REQUIRED = (
-    "dbeel_read_file",
-    "dbeel_stage_prefixes",
-    "dbeel_writer_open",
-    "dbeel_writer_open2",
-    "dbeel_writer_put",
-    "dbeel_writer_sync",
-    "dbeel_writer_close",
-    "dbeel_writer_close2",
-    "dbeel_writer_abort",
-    "dbeel_pipe_decode",
-    "dbeel_bloom_add_batch",
-    "dbeel_murmur3_32_batch",
-)
+# Outputs of the native merge at or above this size are written by the
+# C O_DIRECT streamer; smaller ones through the page-mirroring writer,
+# so fresh little tables stay warm in the page cache.
+ODIRECT_MIN_BYTES = 64 << 20
+
+# The merge calls back into Python (the throttle's tick) every
+# _MERGE_TICK_EVERY popped entries; its file IO every _IO_CHUNK_BYTES —
+# small enough that a BgThrottle can pace the burst against serving,
+# large enough to keep near-sequential disk bandwidth.
+TICK_FN = ctypes.CFUNCTYPE(None)
+_MERGE_TICK_EVERY = 65536
+_IO_CHUNK_BYTES = 16 << 20
+
+_vp, _cp = ctypes.c_void_p, ctypes.c_char_p
+_int, _i32, _i64 = ctypes.c_int, ctypes.c_int32, ctypes.c_int64
+_u32, _u64 = ctypes.c_uint32, ctypes.c_uint64
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u32p = ctypes.POINTER(_u32)
+_u64p = ctypes.POINTER(_u64)
+_cpp = ctypes.POINTER(_cp)
+# (data pointers, index pointers, counts, n_sources, keep_tombstones)
+# and (out_data, out_size, out_index) of the merges.
+_MERGE_IN = [_cpp, _cpp, _u64p, _u32, _int]
+_MERGE_OUT = [_u8p, _u64p, _u8p]
+
+# Every symbol the port calls: (restype, argtypes).  argtypes None —
+# the caller passes fully typed ctypes arguments (ops/pipeline.py).
+# A library lacking any of them is not used.
+_PROTOTYPES = {
+    # The compaction pipeline and the scan stage.
+    "dbeel_read_file": (_i64, [_cp, _u8p, _u64]),
+    "dbeel_stage_prefixes": (
+        None, [_u8p, _u64, _u64p, _u32p, _u64, _u64, _u8p]
+    ),
+    "dbeel_writer_open": (_vp, [_cp, _cp]),
+    "dbeel_writer_open2": (_vp, [_cp, _cp, _i32]),
+    "dbeel_writer_put": (
+        _i64, [_vp, ctypes.POINTER(_u8p), _u32p, _u64p, _u32p, _u32p, _u64]
+    ),
+    "dbeel_writer_sync": (None, [_vp]),
+    "dbeel_writer_close": (_i64, [_vp, _u64p]),
+    "dbeel_writer_close2": (
+        _i64, [_vp, _u64p, _u32p, _u64, _u32p, _u64, _u64p, _u64p]
+    ),
+    "dbeel_writer_abort": (None, [_vp]),
+    "dbeel_pipe_decode": (_int, None),
+    "dbeel_bloom_add_batch": (None, None),
+    "dbeel_murmur3_32": (_u32, [_cp, _u64, _u32]),
+    "dbeel_murmur3_32_batch": (None, [_cp, _u64p, _u32p, _u64, _u32, _u32p]),
+    # The arena memtable and its flush.
+    "dbeel_memtable_new": (_vp, [_u32]),
+    "dbeel_memtable_free": (None, [_vp]),
+    "dbeel_memtable_set": (_i32, [_vp, _cp, _u32, _cp, _u32, _i64, _u32p]),
+    "dbeel_memtable_get": (
+        _i32, [_vp, _cp, _u32, ctypes.POINTER(_u8p), _u32p,
+               ctypes.POINTER(_i64)]
+    ),
+    "dbeel_memtable_len": (_u32, [_vp]),
+    "dbeel_memtable_bytes": (_u64, [_vp]),
+    "dbeel_memtable_max_ts": (_i64, [_vp]),
+    "dbeel_memtable_dump_size": (_u64, [_vp]),
+    "dbeel_memtable_dump": (_u64, [_vp, _u8p]),
+    "dbeel_memtable_flush_write": (_i64, [_vp, _cp, _u64, _u64]),
+    "dbeel_memtable_flush_write2": (
+        _i64, [_vp, _cp, _u64, _u64, _u32p, _u64, _u32p, _u64, _u64p,
+               _u64p, _u32p, ctypes.POINTER(_i32)]
+    ),
+    # The WAL appender, its syncer and the sync hub.
+    "dbeel_wal_new": (_vp, [_i32, _u64]),
+    "dbeel_wal_free": (None, [_vp]),
+    "dbeel_wal_append": (_u64, [_vp, _cp, _u32, _cp, _u32, _i64]),
+    "dbeel_wal_offset": (_u64, [_vp]),
+    "dbeel_wal_seq": (_u64, [_vp]),
+    "dbeel_wal_synced": (_u64, [_vp]),
+    "dbeel_wal_sync_enable": (_i32, [_vp, _u64, _i32]),
+    "dbeel_wal_sync_disable": (None, [_vp]),
+    "dbeel_wal_sync_attach": (_i32, [_vp, _vp, _u64]),
+    "dbeel_wal_sync_stop_async": (None, [_vp]),
+    "dbeel_walsync_hub_new": (_vp, [_u32]),
+    "dbeel_walsync_hub_free": (None, [_vp]),
+    "dbeel_walsync_hub_eventfd": (_i32, [_vp]),
+    "dbeel_walsync_hub_reap": (None, [_vp]),
+    "dbeel_walsync_errors": (_u64, []),
+    # The k-way merge and its file IO.
+    "dbeel_merge": (_i64, _MERGE_IN + _MERGE_OUT),
+    "dbeel_merge_cb": (_i64, _MERGE_IN + _MERGE_OUT + [TICK_FN, _u64]),
+    "dbeel_merge_grace_cb": (
+        _i64, _MERGE_IN + [_i64] + _MERGE_OUT + [TICK_FN, _u64]
+    ),
+    "dbeel_read_file_cb": (_i64, [_cp, _u8p, _u64, TICK_FN, _u64]),
+    "dbeel_read_files_overlapped": (
+        _i64, [_cpp, ctypes.POINTER(_u8p), _u64p, _u32, TICK_FN, _u64]
+    ),
+    "dbeel_write_file": (_i64, [_cp, _u8p, _u64]),
+    "dbeel_write_file_cb": (_i64, [_cp, _u8p, _u64, TICK_FN, _u64]),
+    # Page CRCs and counters.
+    "dbeel_crc32_pages": (None, [_u8p, _u64, _u32p]),
+    "dbeel_odirect_fallbacks": (_u64, []),
+    "dbeel_read_overlap_stats": (None, [_u64p, _u64p]),
+}
+_REQUIRED = tuple(_PROTOTYPES)
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -89,82 +207,16 @@ def build() -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.dbeel_read_file.restype = ctypes.c_int64
-    lib.dbeel_read_file.argtypes = [ctypes.c_char_p, u8p, ctypes.c_uint64]
-    lib.dbeel_stage_prefixes.restype = None
-    lib.dbeel_stage_prefixes.argtypes = [
-        u8p,
-        ctypes.c_uint64,
-        ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.c_uint64,
-        ctypes.c_uint64,
-        u8p,
-    ]
-    lib.dbeel_writer_open.restype = ctypes.c_void_p
-    lib.dbeel_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
-    lib.dbeel_writer_open2.restype = ctypes.c_void_p
-    lib.dbeel_writer_open2.argtypes = [
-        ctypes.c_char_p,
-        ctypes.c_char_p,
-        ctypes.c_int32,
-    ]
-    lib.dbeel_writer_put.restype = ctypes.c_int64
-    lib.dbeel_writer_put.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(u8p),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.c_uint64,
-    ]
-    lib.dbeel_writer_sync.restype = None
-    lib.dbeel_writer_sync.argtypes = [ctypes.c_void_p]
-    lib.dbeel_writer_close.restype = ctypes.c_int64
-    lib.dbeel_writer_close.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_uint64),
-    ]
-    lib.dbeel_writer_close2.restype = ctypes.c_int64
-    lib.dbeel_writer_close2.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.c_uint64,
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.c_uint64,
-        ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint64),
-    ]
-    lib.dbeel_writer_abort.restype = None
-    lib.dbeel_writer_abort.argtypes = [ctypes.c_void_p]
-    # dbeel_pipe_decode and dbeel_bloom_add_batch are called with fully
-    # typed ctypes arguments (ops/pipeline.py).
-    lib.dbeel_pipe_decode.restype = ctypes.c_int
-    lib.dbeel_bloom_add_batch.restype = None
-    lib.dbeel_murmur3_32_batch.restype = None
-    lib.dbeel_murmur3_32_batch.argtypes = [
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_uint64),
-        ctypes.POINTER(ctypes.c_uint32),
-        ctypes.c_uint64,
-        ctypes.c_uint32,
-        ctypes.POINTER(ctypes.c_uint32),
-    ]
-    if hasattr(lib, "dbeel_murmur3_32"):
-        lib.dbeel_murmur3_32.restype = ctypes.c_uint32
-        lib.dbeel_murmur3_32.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_uint64,
-            ctypes.c_uint32,
-        ]
+    for name, (restype, argtypes) in _PROTOTYPES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        if argtypes is not None:
+            fn.argtypes = argtypes
 
 
 def load() -> Optional[ctypes.CDLL]:
     """The library, built first if missing or stale; None when it
-    cannot be built or lacks the pipeline's symbols."""
+    cannot be built or lacks a symbol of ``_PROTOTYPES``."""
     global _lib, _tried
     with _guard:
         if _lib is not None or _tried:
@@ -199,3 +251,299 @@ def load_if_built() -> Optional[ctypes.CDLL]:
     if not os.path.exists(LIB_PATH):
         return None
     return load()
+
+
+def native_available() -> bool:
+    return load() is not None
+
+
+_odirect_warned = False
+
+
+def odirect_fallbacks() -> int:
+    """Process-wide count of O_DIRECT → buffered degradations in the C
+    streamers (an unaligned destination buffer, a filesystem refusing
+    O_DIRECT); the first non-zero reading logs a warning.  Never
+    triggers a build: 0 while the library is not loaded."""
+    global _odirect_warned
+    lib = _lib
+    if lib is None:
+        return 0
+    n = int(lib.dbeel_odirect_fallbacks())
+    if n and not _odirect_warned:
+        _odirect_warned = True
+        log.warning(
+            "O_DIRECT degraded to buffered I/O %d time(s) (unaligned "
+            "buffer or filesystem without O_DIRECT support)", n,
+        )
+    return n
+
+
+def read_overlap_stats() -> "tuple[int, int]":
+    """(io_uring passes, serial passes) of the overlapped multi-file
+    input loader.  Never triggers a build: (0, 0) while the library is
+    not loaded."""
+    lib = _lib
+    if lib is None:
+        return (0, 0)
+    a = ctypes.c_uint64(0)
+    b = ctypes.c_uint64(0)
+    lib.dbeel_read_overlap_stats(ctypes.byref(a), ctypes.byref(b))
+    return (int(a.value), int(b.value))
+
+
+def aligned_u8_buffer(size: int) -> np.ndarray:
+    """4 KiB-aligned uint8 destination of ``max(1, size)`` logical
+    bytes with page-rounded capacity — what the O_DIRECT readers
+    require (an unaligned buffer silently degrades to buffered IO)."""
+    cap = (size + 4095) & ~4095
+    raw = np.empty(cap + 4096, dtype=np.uint8)
+    off = (-raw.ctypes.data) % 4096
+    return raw[off: off + max(1, size)]
+
+
+def page_crcs_native(lib, arr: np.ndarray, size: int) -> list:
+    """Per-4 KiB-page CRCs of ``arr[:size]`` by the C kernel — the
+    in-RAM half of the single-pass sidecar (the merged output is still
+    resident; summing it here beats re-reading the file just written)."""
+    npages = (size + PAGE_SIZE - 1) // PAGE_SIZE
+    if npages == 0:
+        return []
+    out = np.zeros(npages, dtype=np.uint32)
+    lib.dbeel_crc32_pages(
+        arr.ctypes.data_as(_u8p),
+        ctypes.c_uint64(int(size)),
+        out.ctypes.data_as(_u32p),
+    )
+    return out.tolist()
+
+
+def require() -> ctypes.CDLL:
+    """The library; raises when it cannot be built (no silent fallback
+    to a Python path)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError(
+            "native library (make -C native) unavailable: "
+            f"{LIB_PATH} cannot be built or lacks the port's symbols"
+        )
+    return lib
+
+
+def murmur3_32_native(data: bytes, seed: int = 0) -> int:
+    """The C murmur3_32 of ``data`` (the parity hook of
+    ``utils/murmur.py``'s pure-Python version); raises when the library
+    cannot be built."""
+    return require().dbeel_murmur3_32(data, len(data), seed)
+
+
+_RECORD = np.dtype(
+    [("offset", "<u8"), ("key_size", "<u4"), ("full_size", "<u4")]
+)
+
+
+class NativeMergeStrategy(CompactionStrategy):
+    """The C++ k-way heap merge (``dbeel_merge*``): the heap strategy's
+    semantics at native speed, with the batch bloom and the inline
+    ``.sums`` sidecar computed from the still-resident output."""
+
+    name = "native"
+
+    def merge(
+        self,
+        sources,
+        dir_path,
+        output_index,
+        cache,
+        keep_tombstones,
+        bloom_min_size,
+    ) -> MergeResult:
+        lib = require()
+        _no_index_runs(self.index_fields)
+        throttle = self.throttle
+        # Chunked, throttle-ticked IO: one unbroken multi-hundred-MB
+        # read or write starves a serving loop; with a tick between
+        # chunks the BgThrottle paces the burst.  TICK_FN() is a NULL
+        # function pointer (no callback).
+        tick_cb = (
+            TICK_FN(throttle.tick) if throttle is not None else TICK_FN()
+        )
+        use_cb = throttle is not None
+
+        def _read_whole(path: str, size: int):
+            if not use_cb or size < _IO_CHUNK_BYTES * 2:
+                with open(path, "rb") as f:
+                    data = f.read(size)
+                if len(data) != size:
+                    # The merge sizes its buffers from the index: a
+                    # truncated data file must fail here, not as an
+                    # out-of-bounds read in C.
+                    raise OSError(
+                        f"short read {len(data)} != {size} for {path}"
+                    )
+                return data
+            # 4 KiB-aligned so the chunked read takes O_DIRECT.
+            buf = aligned_u8_buffer(size)
+            got = lib.dbeel_read_file_cb(
+                path.encode(),
+                buf.ctypes.data_as(_u8p),
+                ctypes.c_uint64(size),
+                tick_cb,
+                ctypes.c_uint64(_IO_CHUNK_BYTES),
+            )
+            if got != size:
+                raise OSError(f"short read {got} != {size} for {path}")
+            return buf
+
+        # The overlapped input pass: every data and index file rides one
+        # io_uring with double-buffered chunk reads (a serial fallback
+        # inside the library is counted in read_overlap_stats).  Merges
+        # under one chunk keep the serial reader.
+        counts = [s.entry_count for s in sources]
+        datas = indexes = None
+        total_in = sum(s.data_size + s.entry_count * 16 for s in sources)
+        if total_in >= _IO_CHUNK_BYTES:
+            paths = [s.data_path for s in sources] + [
+                s.index_path for s in sources
+            ]
+            sizes = [s.data_size for s in sources] + [
+                s.entry_count * 16 for s in sources
+            ]
+            bufs = [aligned_u8_buffer(sz) for sz in sizes]
+            got = lib.dbeel_read_files_overlapped(
+                (ctypes.c_char_p * len(paths))(
+                    *[p.encode() for p in paths]
+                ),
+                (_u8p * len(paths))(
+                    *[b.ctypes.data_as(_u8p) for b in bufs]
+                ),
+                (ctypes.c_uint64 * len(paths))(*sizes),
+                len(paths),
+                tick_cb,
+                ctypes.c_uint64(_IO_CHUNK_BYTES),
+            )
+            if got == sum(sizes):
+                datas = bufs[: len(sources)]
+                indexes = bufs[len(sources):]
+            else:
+                log.warning(
+                    "overlapped input read failed (%d); serial reads", got
+                )
+        if datas is None or indexes is None:
+            datas = [_read_whole(s.data_path, s.data_size) for s in sources]
+            indexes = [
+                _read_whole(s.index_path, s.entry_count * 16)
+                for s in sources
+            ]
+
+        total_data = sum(s.data_size for s in sources)
+        out_data = np.zeros(max(1, total_data), dtype=np.uint8)
+        out_index = np.zeros(max(1, sum(counts) * 16), dtype=np.uint8)
+        out_size = ctypes.c_uint64(0)
+
+        def _as_cptr(b):
+            if isinstance(b, np.ndarray):
+                return ctypes.cast(b.ctypes.data_as(_u8p), ctypes.c_char_p)
+            return ctypes.c_char_p(b)
+
+        ptrs = ctypes.c_char_p * len(sources)
+        head = (
+            ptrs(*[_as_cptr(d) for d in datas]),
+            ptrs(*[_as_cptr(i) for i in indexes]),
+            (ctypes.c_uint64 * len(sources))(*counts),
+            len(sources),
+            1 if keep_tombstones else 0,
+        )
+        out = (
+            out_data.ctypes.data_as(_u8p),
+            ctypes.byref(out_size),
+            out_index.ctypes.data_as(_u8p),
+        )
+        cutoff = int(self.tombstone_drop_before or 0)
+        if not keep_tombstones and cutoff > 0:
+            # gc_grace: tombstones at or after the cutoff survive the
+            # drop.
+            n_out = lib.dbeel_merge_grace_cb(
+                *head, ctypes.c_int64(cutoff), *out, tick_cb,
+                _MERGE_TICK_EVERY,
+            )
+        else:
+            n_out = lib.dbeel_merge_cb(
+                *head, *out, tick_cb, _MERGE_TICK_EVERY
+            )
+        n_out = int(n_out)
+        data_size = int(out_size.value)
+        self._tick()
+
+        data_path = (
+            f"{dir_path}/{file_name(output_index, COMPACT_DATA_FILE_EXT)}"
+        )
+        index_path = (
+            f"{dir_path}/{file_name(output_index, COMPACT_INDEX_FILE_EXT)}"
+        )
+        if data_size >= ODIRECT_MIN_BYTES:
+            # Large outputs: C O_DIRECT writes, no Python copies and no
+            # page-cache mirroring.
+            rcs = []
+            for path, arr, size in (
+                (data_path, out_data, data_size),
+                (index_path, out_index, n_out * 16),
+            ):
+                if use_cb:
+                    rcs.append(lib.dbeel_write_file_cb(
+                        path.encode(), arr.ctypes.data_as(_u8p),
+                        ctypes.c_uint64(size), tick_cb,
+                        ctypes.c_uint64(_IO_CHUNK_BYTES),
+                    ))
+                else:
+                    rcs.append(lib.dbeel_write_file(
+                        path.encode(), arr.ctypes.data_as(_u8p),
+                        ctypes.c_uint64(size),
+                    ))
+            if any(rcs):
+                raise OSError("native O_DIRECT write failed")
+        else:
+            for path, ext, blob in (
+                (data_path, DATA_FILE_EXT, out_data[:data_size]),
+                (index_path, INDEX_FILE_EXT, out_index[: n_out * 16]),
+            ):
+                w = PageMirroringWriter(path, (ext, output_index), cache)
+                w.write(blob.tobytes())
+                w.close()
+
+        wrote_bloom = False
+        bloom_bytes = None
+        if data_size >= bloom_min_size and n_out > 0:
+            rec = np.frombuffer(out_index[: n_out * 16], dtype=_RECORD)
+            bloom = BloomFilter.with_capacity(n_out)
+            key_offsets = (rec["offset"] + 16).astype(np.uint64)
+            key_lens = rec["key_size"].astype(np.uint32)
+            lib.dbeel_bloom_add_batch(
+                bloom.bits.ctypes.data_as(_u8p),
+                ctypes.c_uint64(bloom.num_bits),
+                ctypes.c_uint32(bloom.num_hashes),
+                out_data.ctypes.data_as(_u8p),
+                key_offsets.ctypes.data_as(_u64p),
+                key_lens.ctypes.data_as(_u32p),
+                ctypes.c_uint64(n_out),
+                ctypes.c_uint32(_SEED1),
+                ctypes.c_uint32(_SEED2),
+            )
+            bloom_bytes = _write_bloom(dir_path, output_index, bloom)
+            wrote_bloom = True
+
+        # The single-pass sidecar: the output is still resident, so it
+        # is page-CRC'd in RAM and the compact_sums file rides the same
+        # journaled rename as the triplet.
+        from . import checksums
+
+        checksums.write(
+            dir_path,
+            output_index,
+            page_crcs_native(lib, out_data, data_size),
+            page_crcs_native(lib, out_index, n_out * 16),
+            data_size,
+            bloom_bytes,
+            ext=COMPACT_SUMS_FILE_EXT,
+        )
+        return MergeResult(n_out, data_size, wrote_bloom)

@@ -29,7 +29,9 @@ for name in ("dbeel_tpu_torch.server.coalescer",
              "dbeel_tpu_torch.utils.msgpack_codec",
              "dbeel_tpu_torch.parallel.mesh",
              "dbeel_tpu_torch.parallel.dist_merge",
-             "dbeel_tpu_torch.ops.merge"):
+             "dbeel_tpu_torch.ops.merge",
+             "dbeel_tpu_torch.storage.native",
+             "dbeel_tpu_torch.storage.wal"):
     assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules
@@ -56,8 +58,12 @@ def test_device_strategies_need_a_card_or_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_strategy(name)
         assert get_strategy(name, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 2"):
+    # The C++ merge runs on the host: it needs the native library only.
+    from dbeel_tpu_torch.storage import native
+
+    assert isinstance(get_strategy("native"), native.NativeMergeStrategy)
+    monkeypatch.setattr(native, "load", lambda: None)
+    with pytest.raises(RuntimeError, match="make -C native"):
         get_strategy("native")
     with pytest.raises(ValueError):
         get_strategy("nonsense")

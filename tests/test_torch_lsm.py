@@ -216,7 +216,27 @@ def test_import_tree_opens_reference_directory(tmp_dir):
         import_tree(f"{tmp_dir}/missing")
 
 
-def test_unported_memtable_kinds_refuse(tmp_dir):
+def test_unported_memtable_kinds_refuse(tmp_dir, monkeypatch):
+    """"arena" and "auto" are ported: "auto" resolves to the arena when
+    native/ is built, as in dbeel_tpu.  Without the library "auto" takes
+    the sorted memtable and an explicit "arena" refuses to open."""
+    from dbeel_tpu_torch.storage import native
+
     for kind in ("arena", "auto"):
-        with pytest.raises(NotImplementedError):
-            TTree.open_or_create(f"{tmp_dir}/m", memtable_kind=kind)
+        tree = TTree.open_or_create(
+            f"{tmp_dir}/{kind}", memtable_kind=kind, strategy=tget("heap")
+        )
+        assert tree.memtable_kind == "arena"
+        assert type(tree._active).__name__ == "ArenaMemtable"
+        tree.close()
+    monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.setattr(native, "load_if_built", lambda: None)
+    with pytest.raises(RuntimeError, match="make -C native"):
+        TTree.open_or_create(
+            f"{tmp_dir}/none", memtable_kind="arena", strategy=tget("heap")
+        )
+    tree = TTree.open_or_create(
+        f"{tmp_dir}/none", memtable_kind="auto", strategy=tget("heap")
+    )
+    assert tree.memtable_kind == "sorted"
+    tree.close()
