@@ -105,16 +105,38 @@ Phases (any failure exits non-zero):
                 ring; else the C sync thread, asserted, and the reason
                 logged) — in fewer syncs than writes, and its WAL
                 replays every acknowledged write after close().
+  9. index    — one shard's indexed collection: 1,000,000 documents of
+                blackbox_bench.py --scan-filter-indexed (index_fields
+                ["v"], a 1 << 14-entry memtable, the write order
+                shuffled from seed 7) into LSMTree(memtable_kind="auto")
+                — the arena, asserted — on get_strategy("device"); every
+                native flush writes a .fidx run and its sidecar
+                (asserted); the flushed tables merge in tiers of 8
+                (single-shot, K3 and K4), each output with a run that
+                loads, the inputs' runs retired, no extra data read; the
+                sweep (v < cut at 0.1%, 1% and 10%, an and of two
+                leaves, a count) paged as a shard pages, each on the
+                "indexed" path, byte-identical to the same tree without
+                its index and equal to a dict oracle, indexed and
+                scan-everything seconds side by side; 10000 cold gets
+                after a reopen with an empty page cache, through io_uring
+                (asserted wherever the host makes a ring; else the
+                executor, asserted, and the reason logged); then one
+                major compaction through the pipeline (K1), which writes
+                no index run, as in dbeel_tpu, so a 0.1% scan misses the
+                planner and still equals the oracle.
 
-Phases 3-6 run on get_strategy("device"), so their routes hold on a
-host with several cards, where get_strategy("auto") is the distributed
-backend (asserted: "device" on one card, "distributed" on several).
+Phases 3-6 and 9 run on get_strategy("device"), so their routes hold
+on a host with several cards, where get_strategy("auto") is the
+distributed backend (asserted: "device" on one card, "distributed" on
+several).
 
-The main path is fourteen runs — the bench merge, the dense merge, the
+The main path is sixteen runs — the bench merge, the dense merge, the
 two trees' major compactions, the shards' writes with their flushes,
 the shards' compaction, the scan collection's compaction and its
 filtered scans, the mesh phase's mesh_wide compaction, its K7
-cross-check, mesh_hot, mesh_skew and mesh_big, and the arena tree's
+cross-check, mesh_hot, mesh_skew and mesh_big, the arena tree's
+major compaction, and the indexed collection's tiered merges and its
 major compaction.  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
@@ -178,6 +200,16 @@ SKEW_KEYS = 65536
 ARENA_OPS = 3 * SHARD_CAPACITY
 ARENA_DURABLE = 16384
 ARENA_WRITERS = 64
+# The index phase: blackbox_bench.py --scan-filter-indexed's collection
+# (index_fields ["v"], a 1 << 14-entry memtable, the write order
+# shuffled) at the scan phase's 1,000,000 documents, on the server's
+# default memtable; its flushed tables are merged in size tiers of 8
+# (each under the pipeline's 64 MiB, so each merge is single-shot),
+# then in one major compaction (over 64 MiB: the pipeline).
+INDEX_DOCS = 1_000_000
+INDEX_CAPACITY = 1 << 14
+INDEX_TIER = 8
+INDEX_GETS = 10_000
 
 
 def log(msg: str) -> None:
@@ -2570,6 +2602,17 @@ def check_mesh_launches(runs):
 # ----------------------------------------------------------------------
 
 
+def _io_uring_refusal() -> str:
+    """Why the host gave no io_uring ring, for the log."""
+    try:
+        with open("/proc/sys/kernel/io_uring_disabled") as f:
+            why = f"kernel.io_uring_disabled={f.read().strip()}"
+    except OSError:
+        why = "no kernel.io_uring_disabled"
+    return (f"io_uring refused on this host, kernel {os.uname().release}, "
+            f"{why}")
+
+
 def _timed_native_flushes(tree):
     """Wrap the tree's native flush to record each one's seconds (the
     flushes run on executor threads)."""
@@ -2597,14 +2640,8 @@ async def _durable_leg(np, d, n_writes, n_writers, tree_kw):
     if hub is not None:
         backend = "io_uring sync hub"
     else:
-        try:
-            with open("/proc/sys/kernel/io_uring_disabled") as f:
-                why = f"kernel.io_uring_disabled={f.read().strip()}"
-        except OSError:
-            why = "no kernel.io_uring_disabled"
         backend = ("C sync thread (dbeel_walsync_hub_new gave no ring: "
-                   f"io_uring refused on this host, kernel "
-                   f"{os.uname().release}, {why})")
+                   f"{_io_uring_refusal()})")
     # Room for every write in one memtable and its one WAL.
     tree = LSMTree.open_or_create(
         d, capacity=2 * n_writes, wal_sync=True, wal_sync_delay_us=200,
@@ -2789,9 +2826,303 @@ def check_arena_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 9: one shard's indexed collection
+# ----------------------------------------------------------------------
 
 
-PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena")
+def index_docs(n, seed=7):
+    """blackbox_bench.py --scan-filter-indexed's collection: keys
+    msgpack("key-%08d"), documents {"v": j, "blob": "x" * 100} at
+    timestamp 1000 + j, written in an order shuffled from ``seed``.
+    Returns (keys, values, order), keys and values indexed by j."""
+    import random
+
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    blob = "x" * 100
+    keys = [codec.packb("key-%08d" % j) for j in range(n)]
+    values = [codec.packb({"v": j, "blob": blob}) for j in range(n)]
+    order = list(range(n))
+    random.Random(seed).shuffle(order)
+    return keys, values, order
+
+
+async def _cold_gets(tree, keys, values, picks):
+    """Point gets of ``picks`` on a tree whose page cache is empty,
+    counting the page reads that completed through io_uring and those
+    the executor took.  Returns (mismatches, seconds, ring reads,
+    executor reads, why no ring)."""
+    from dbeel_tpu_torch.storage import file_io, uring
+
+    ur = uring.get_for_loop()
+    why = (None if ur is not None else
+           f"dbeel_uring_create gave no ring: {_io_uring_refusal()}")
+    ring_done, hops = [0], [0]
+    real_queue = uring.UringReader.queue_pread
+    real_pread = file_io.CachedFileReader._pread_pages
+
+    def done(fut):
+        if not fut.cancelled() and fut.exception() is None:
+            ring_done[0] += 1
+
+    def queue(self, fd, size, offset):
+        fut = real_queue(self, fd, size, offset)
+        if fut is not None:
+            fut.add_done_callback(done)
+        return fut
+
+    def pread(self, addresses):
+        hops[0] += len(addresses)
+        return real_pread(self, addresses)
+
+    uring.UringReader.queue_pread = queue
+    file_io.CachedFileReader._pread_pages = pread
+    try:
+        bad = 0
+        t0 = time.perf_counter()
+        for j in picks:
+            if await tree.get(keys[j]) != values[j]:
+                bad += 1
+        secs = time.perf_counter() - t0
+    finally:
+        uring.UringReader.queue_pread = real_queue
+        file_io.CachedFileReader._pread_pages = real_pread
+    if ur is not None and ring_done[0] == 0:
+        raise AssertionError("a ring was made but no read completed on it")
+    if ur is None and hops[0] == 0:
+        raise AssertionError(f"no ring ({why}) and no executor read")
+    return bad, secs, ring_done[0], hops[0], why
+
+
+async def _drive_index(torch, np, n, capacity, tier, n_gets, device,
+                       strategy):
+    from dbeel_tpu_torch import query as Q
+    from dbeel_tpu_torch.ops import _cuda, pipeline
+    from dbeel_tpu_torch.ops.device_compaction import DeviceMergeStrategy
+    from dbeel_tpu_torch.storage import LSMTree
+    from dbeel_tpu_torch.storage import secondary_index as si
+    from dbeel_tpu_torch.storage.compaction import compaction_stats
+    from dbeel_tpu_torch.storage.page_cache import (
+        PageCache, PartitionPageCache,
+    )
+
+    t0 = time.perf_counter()
+    keys, values, order = index_docs(n)
+    log(f"index: {n} docs generated in {time.perf_counter() - t0:.1f}s")
+    d = os.path.join(WORK, "index")
+
+    def open_tree():
+        # A fresh page cache each time: the gets after a reopen are cold.
+        return LSMTree.open_or_create(
+            d, cache=PartitionPageCache("index", PageCache(16384)),
+            capacity=capacity, memtable_kind="auto", index_fields=["v"],
+            strategy=strategy, device=device,
+        )
+
+    tree = open_tree()
+    if tree.memtable_kind != "arena" or tree.index_fields != ["v"]:
+        raise AssertionError(f"index tree: memtable {tree.memtable_kind}, "
+                             f"index_fields {tree.index_fields}")
+    flush_s = _timed_native_flushes(tree)
+    idx0, st0 = si.index_stats.stats(), compaction_stats.stats()
+    t0 = time.perf_counter()
+    for j in order:
+        await tree.set_with_timestamp(keys[j], values[j], 1_000 + j)
+    await tree.flush()
+    await _settle()
+    t_load = time.perf_counter() - t0
+    tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+    idx1, st1 = si.index_stats.stats(), compaction_stats.stats()
+    missing = [i for i in tables
+               if not all(os.path.exists(p) for p in si.run_paths(d, i))]
+    built = idx1["runs_built"] - idx0["runs_built"]
+    log(f"index load: {n} writes in {t_load:.1f}s ({n / t_load:.0f} "
+        f"writes/s), {len(tables)} native flushes (seconds total "
+        f"{sum(flush_s):.3f}, mean {sum(flush_s) / max(1, len(flush_s)):.4f},"
+        f" max {max(flush_s, default=0):.4f}); {built} runs built, "
+        f"{idx1['bytes_written'] - idx0['bytes_written']} run bytes")
+    if missing or built != len(tables) or len(flush_s) != len(tables):
+        raise AssertionError(f"flushes without a .fidx run and its sidecar: "
+                             f"{missing}; {built} built, {len(flush_s)} "
+                             f"native flushes of {len(tables)} tables")
+
+    # Run index_tiered: size-tiered merges of ``tier`` flushed tables,
+    # each under the pipeline's threshold (single-shot K3, K4 on ties).
+    sizes = dict(tree.sstable_indices_and_sizes())
+    groups = [tables[i: i + tier] for i in range(0, len(tables), tier)]
+    top = max(sum(sizes[i] for i in g) for g in groups)
+    if top >= DeviceMergeStrategy.PIPELINE_MIN_BYTES:
+        raise AssertionError(f"a tier of {top} bytes takes the pipeline")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for g in groups:
+        await tree.compact(g, max(g) + 1, keep_tombstones=True)
+    tiered = dict(_cuda.launches)
+    t_tiered = time.perf_counter() - t0
+    st2, idx2 = compaction_stats.stats(), si.index_stats.stats()
+    outs = [max(g) + 1 for g in groups]
+    live = [i for i, _ in tree.sstable_indices_and_sizes()]
+    extra = ((st2["bytes_read"] - st1["bytes_read"])
+             - (st2["merge_input_bytes"] - st1["merge_input_bytes"]))
+    stale = [i for i in tables for p in si.run_paths(d, i)
+             if os.path.exists(p)]
+    log(f"index tiered: {len(groups)} merges of up to {tier} tables "
+        f"({top} bytes at most) in {t_tiered:.2f}s, launches {tiered}; "
+        f"{idx2['runs_merged'] - idx1['runs_merged']} runs merged, extra "
+        f"data reads {extra} bytes")
+    if live != outs or extra or stale or any(
+            si.load_run(d, o) is None for o in outs):
+        raise AssertionError(
+            f"tiered merges: live {live} (want {outs}), extra reads "
+            f"{extra}, input runs left {stale}")
+
+    # The selectivity sweep: each spec paged with the index and, on the
+    # same tree, without it, each side from a fresh stage.
+    cut = {frac: max(1, int(n * frac)) for frac in (0.001, 0.01, 0.1)}
+    lo, hi = n // 2, n // 2 + cut[0.01]
+    count = Q.validate_agg({"op": "count"})
+    specs = [
+        ("0.1%", ["cmp", "v", "<", cut[0.001]], None, range(cut[0.001])),
+        ("1%", ["cmp", "v", "<", cut[0.01]], None, range(cut[0.01])),
+        ("10%", ["cmp", "v", "<", cut[0.1]], None, range(cut[0.1])),
+        ("and 1%", ["and", ["cmp", "v", ">=", lo], ["cmp", "v", "<", hi]],
+         None, range(lo, hi)),
+        ("count 1%", ["cmp", "v", "<", cut[0.01]], count, range(cut[0.01])),
+    ]
+
+    async def warm():
+        await tree.scan_filter_page(0, 0, None, None, 1, 1 << 16, True,
+                                    None, None, "drop")
+
+    hits0 = si.index_stats.stats()["planner_hits"]
+    for label, where, agg, want in specs:
+        where = Q.validate_where(where)
+        sides = {}
+        for indexed in (True, False):
+            tree.index_fields = ["v"] if indexed else None
+            tree._drop_scan_stage()
+            await warm()
+            pages, entries, secs = await _scan_pass(tree, where, agg, "drop")
+            sides[indexed] = (pages, entries, secs)
+        tree.index_fields = ["v"]
+        tree._drop_scan_stage()
+        (ip, ie, isecs), (sp, se, ssecs) = sides[True], sides[False]
+        paths = sorted({p[6] for p in ip})
+        oracle = [[keys[j], values[j], 1_000 + j] for j in want]
+        folded = []
+        for side in (ip, sp):
+            state = Q.AggState(agg) if agg is not None else None
+            for p in side:
+                if state is not None:
+                    state.fold_partial(p[5])
+            folded.append(state and state.result())
+        ok = ie == oracle if agg is None else (
+            not ie and folded[0] == len(want))
+        same = (ie == se and folded[0] == folded[1]
+                and [p[2:5] for p in ip] == [p[2:5] for p in sp])
+        log(f"index {label}: indexed {len(ip)} pages {isecs:.3f}s "
+            f"({len(want) / isecs:.0f} keys-matched/s, paths {paths}) | "
+            f"scan-everything {ssecs:.3f}s ({len(want) / ssecs:.0f} "
+            f"keys-matched/s) -> x{ssecs / isecs:.2f}; byte-identical "
+            f"{same}, oracle {ok}")
+        if "indexed" not in paths or not same or not ok:
+            raise AssertionError(f"index {label}: paths {paths}, "
+                                 f"byte-identical {same}, oracle {ok}")
+    stats = si.index_stats.stats()
+    amp = compaction_stats.stats()["index_maintenance_amplification"]
+    log(f"index stats {json.dumps(stats, sort_keys=True)}; "
+        f"index_maintenance_amplification {amp}")
+    if stats["planner_hits"] <= hits0:
+        raise AssertionError("the planner never engaged")
+
+    # Cold point reads: a reopened tree with an empty page cache.
+    tree.close()
+    tree = open_tree()
+    picks = np.random.default_rng(9).choice(n, n_gets, replace=False)
+    bad, secs, ring, hops, why = await _cold_gets(
+        tree, keys, values, picks.tolist())
+    log(f"index cold gets: {n_gets} in {secs:.2f}s ({n_gets / secs:.0f} "
+        f"gets/s), mismatches {bad}; page reads through io_uring {ring}, "
+        f"through the executor {hops}"
+        + ("" if why is None else f" ({why})"))
+    if bad:
+        raise AssertionError(f"{bad} cold gets disagree with the oracle")
+
+    # Run index_major: one major compaction over the pipeline's
+    # threshold — the pipeline (K1) writes no index run, as in
+    # dbeel_tpu, and the planner then misses on the output.
+    live = [i for i, _ in tree.sstable_indices_and_sizes()]
+    total = sum(s for _, s in tree.sstable_indices_and_sizes())
+    if total < DeviceMergeStrategy.PIPELINE_MIN_BYTES:
+        raise AssertionError(f"the major compaction of {total} bytes is "
+                             "under the pipeline's threshold")
+    out = max(live) + 1
+    runs0 = pipeline.pipeline_stats["runs"]
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    await tree.compact(live, out, keep_tombstones=False)
+    major = dict(_cuda.launches)
+    t_major = time.perf_counter() - t0
+    left = [p for c in (False, True) for p in si.run_paths(d, out, c)
+            if os.path.exists(p)]
+    log(f"index major: {len(live)} tables ({total} bytes) in "
+        f"{t_major:.2f}s through the pipeline "
+        f"({pipeline.pipeline_stats['runs'] - runs0} run), launches "
+        f"{major}; index run files on the output {left}")
+    if pipeline.pipeline_stats["runs"] != runs0 + 1 or left:
+        raise AssertionError(f"major compaction: pipeline runs "
+                             f"{pipeline.pipeline_stats}, run files {left}")
+    misses0 = si.index_stats.stats()["planner_misses"]
+    label, where, _agg, want = specs[0]
+    pages, entries, secs = await _scan_pass(
+        tree, Q.validate_where(where), None, "drop")
+    paths = sorted({p[6] for p in pages})
+    ok = entries == [[keys[j], values[j], 1_000 + j] for j in want]
+    log(f"index {label} after the major compaction: {len(pages)} pages "
+        f"{secs:.3f}s, paths {paths}, oracle {ok}")
+    if ("indexed" in paths or not ok
+            or si.index_stats.stats()["planner_misses"] <= misses0):
+        raise AssertionError(f"scan after the major compaction: paths "
+                             f"{paths}, oracle {ok}")
+    tree.close()
+    return {"index_tiered": tiered, "index_major": major}
+
+
+def phase_index(torch, np, n=INDEX_DOCS, capacity=INDEX_CAPACITY,
+                tier=INDEX_TIER, n_gets=INDEX_GETS, device="cuda",
+                strategy=None):
+    """Returns the launch counts of the tiered merges and of the major
+    compaction.  ``strategy`` None = get_strategy("device") on
+    ``device``."""
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+
+    t0 = time.perf_counter()
+    runs = asyncio.run(_drive_index(
+        torch, np, n, capacity, tier, n_gets, device,
+        strategy or get_strategy("device", device=device),
+    ))
+    shutil.rmtree(os.path.join(WORK, "index"))
+    log(f"index: {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def check_index_launches(runs):
+    """The tiered merges take K3's single-shot route (K4 where prefixes
+    tie), the major compaction the pipeline (K1, K2 for dense
+    partitions), and nothing else."""
+    for run, want, allowed in (("index_tiered", "K3", ("K3", "K4")),
+                               ("index_major", "K1", ("K1", "K2"))):
+        got = runs[run]
+        rest = {k: v for k, v in got.items() if k not in allowed}
+        if got.get(want, 0) == 0 or any(rest.values()):
+            raise AssertionError(f"{run} launches {got}")
+
+
+# ----------------------------------------------------------------------
+
+
+PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena",
+          "index")
 
 
 def main(argv=None) -> int:
@@ -2871,6 +3202,10 @@ def main(argv=None) -> int:
             arena_runs = phase_arena(torch, np)
             check_arena_launches(arena_runs)
             runs.update(arena_runs)
+        if "index" in only:
+            index_runs = phase_index(torch, np, strategy=strategy)
+            check_index_launches(index_runs)
+            runs.update(index_runs)
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.

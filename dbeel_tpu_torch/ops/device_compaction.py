@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..storage import columnar
-from ..storage.compaction import ColumnarMergeStrategy, _no_index_runs
+from ..storage.compaction import ColumnarMergeStrategy
 from .bitonic import device_merge_prefix_order, device_merge_sorted_runs
 
 
@@ -59,8 +59,11 @@ class DeviceMergeStrategy(ColumnarMergeStrategy):
         """Partitioned native pipeline for big merges (ops/pipeline.py:
         O_DIRECT reads, per-partition kernel launches, C++ gather +
         O_DIRECT streaming writes, all stages overlapped); otherwise
-        the single-shot path with per-run upload/read overlap."""
-        _no_index_runs(self.index_fields)
+        the single-shot path with per-run upload/read overlap.
+
+        Only the single-shot path emits a ``compact_fidx`` index run
+        (``index_fields``); the pipeline writes none, as in dbeel_tpu,
+        and the planner then treats that table's rows as candidates."""
         total = sum(getattr(s, "data_size", 0) for s in sources)
         if total >= self.PIPELINE_MIN_BYTES:
             from .pipeline import pipeline_merge

@@ -54,7 +54,7 @@ from ..ops.bitonic import (
     _u64,
 )
 from ..storage import columnar
-from ..storage.compaction import ColumnarMergeStrategy, _no_index_runs
+from ..storage.compaction import ColumnarMergeStrategy
 from .mesh import Mesh
 
 _SENTINEL = 0xFFFFFFFF
@@ -376,7 +376,6 @@ class DistributedMergeStrategy(ColumnarMergeStrategy):
         keep_tombstones,
         bloom_min_size,
     ):
-        _no_index_runs(self.index_fields)
         total = sum(getattr(s, "data_size", 0) for s in sources)
         if total >= self.PIPELINE_MIN_BYTES:
             from ..ops.pipeline import pipeline_merge

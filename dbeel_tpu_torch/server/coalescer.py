@@ -28,7 +28,6 @@ import numpy as np
 from ..ops import bitonic, query_kernels
 from ..ops._cuda import resolve_device
 from ..storage import columnar
-from ..storage.compaction import _no_index_runs
 
 log = logging.getLogger(__name__)
 
@@ -279,7 +278,6 @@ class CoalescedDeviceMergeStrategy:
             write_output_columnar,
         )
 
-        _no_index_runs(self.index_fields)
         loop = asyncio.get_event_loop()
 
         # Big merges: the partitioned pipeline (off-loop, K1/K2) beats

@@ -241,7 +241,13 @@ class HeapMergeStrategy(CompactionStrategy):
         keys: List[bytes] = []
         last_key: Optional[bytes] = None
         popped = 0
-        _no_index_runs(self.index_fields)
+        # Index-run extraction: collected AS entries stream through
+        # the writer — the values are in hand, so the run costs zero
+        # re-reads even on this per-entry path.
+        idx_rows: Optional[List[Tuple[int, bytes]]] = (
+            [] if self.index_fields else None
+        )
+        run_off = 0
         while heap:
             popped += 1
             if popped % 8192 == 0:
@@ -262,6 +268,9 @@ class HeapMergeStrategy(CompactionStrategy):
                 # resurrect the deleted value.
             writer.write(key, value, ~_nts)
             keys.append(key)
+            if idx_rows is not None:
+                idx_rows.append((run_off, value))
+            run_off += ENTRY_HEADER_SIZE + len(key) + len(value)
         data_size = writer.close()
         wrote_bloom = False
         bloom_bytes = None
@@ -280,6 +289,16 @@ class HeapMergeStrategy(CompactionStrategy):
             bloom_bytes,
             ext=COMPACT_SUMS_FILE_EXT,
         )
+        if idx_rows is not None:
+            from . import secondary_index as si
+
+            si.emit_run(
+                dir_path,
+                output_index,
+                self.index_fields,
+                idx_rows,
+                compact=True,
+            )
         return MergeResult(writer.entries_written, data_size, wrote_bloom)
 
 
@@ -347,7 +366,6 @@ def write_output_columnar(
     index_fields=None,
 ) -> MergeResult:
     """Bulk-write the compact_* triplet from a surviving-record order."""
-    _no_index_runs(index_fields)
     full_sizes = cols.full_size[order].astype(np.uint64)
     data_size = int(full_sizes.sum())
     n = int(order.size)
@@ -419,6 +437,18 @@ def write_output_columnar(
         bloom_bytes,
         ext=COMPACT_SUMS_FILE_EXT,
     )
+    if index_fields:
+        # Index run sliced straight out of the gathered output blob
+        # still resident in RAM — zero re-reads.
+        from . import secondary_index as si
+
+        si.emit_run(
+            dir_path,
+            output_index,
+            index_fields,
+            si.rows_from_blob(data_arr, index_arr, n),
+            compact=True,
+        )
     return MergeResult(n, data_size, wrote_bloom)
 
 
@@ -434,17 +464,6 @@ def _write_bloom(
         f.flush()
         os.fsync(f.fileno())
     return blob
-
-
-def _no_index_runs(index_fields) -> None:
-    """Secondary-index runs (the ``index_fields`` pass-through of the
-    merge strategies) belong to a later slice of the port: a merge
-    asked to emit them refuses instead of silently dropping them."""
-    if index_fields:
-        raise NotImplementedError(
-            "secondary-index runs are not ported yet "
-            "(ROADMAP.md Queue 1 item 3: secondary indexes)"
-        )
 
 
 def _several_cards(dev) -> bool:

@@ -209,7 +209,13 @@ class CachedFileReader:
         return raw
 
     def _pread_page(self, address: int) -> bytes:
-        raw = os.pread(self._fd, PAGE_SIZE, address)
+        return self._finish_page(
+            address, os.pread(self._fd, PAGE_SIZE, address)
+        )
+
+    def _finish_page(self, address: int, raw: bytes) -> bytes:
+        """Injected fault, zero-pad to a whole page, CRC check: once for
+        every page read, whichever way it was read."""
         if _faults:
             raw = _apply_read_fault(self.path, raw)
         if len(raw) < PAGE_SIZE:
@@ -221,10 +227,44 @@ class CachedFileReader:
         return [self._pread_page(a) for a in addresses]
 
     async def _read_pages_async(self, addresses) -> list:
-        """Whole pages for every address, pread in one executor hop;
-        partial trailing pages are zero-padded.  (The io_uring
-        submission path of the reference package is not ported yet —
-        see ROADMAP.md.)"""
+        """Whole pages for every address: io_uring submissions when
+        available (each a zero-thread async read), executor preads
+        otherwise; partial trailing pages are zero-padded either way."""
+        from . import uring
+
+        ur = uring.get_for_loop()
+        if ur is not None:
+            futs = []  # (address, future)
+            fallback = []
+            for a in addresses:
+                f = ur.queue_pread(self._fd, PAGE_SIZE, a)
+                if f is None:  # ring at capacity: executor for these
+                    fallback.append(a)
+                else:
+                    futs.append((a, f))
+            if futs and not ur.flush():
+                # Kernel rejected the batch: those futures will never
+                # complete — cancel them and take the executor path.
+                for _a, f in futs:
+                    f.cancel()
+                fallback.extend(a for a, _f in futs)
+                futs = []
+            by_addr = {}
+            if futs:
+                done = await asyncio.gather(*[f for _a, f in futs])
+                for (a, _f), r in zip(futs, done):
+                    # Verify BEFORE the caller can cache or decode it —
+                    # uring completions bypass _pread_page.
+                    by_addr[a] = self._finish_page(a, r)
+            if fallback:
+                for a, r in zip(
+                    fallback,
+                    await asyncio.get_event_loop().run_in_executor(
+                        None, self._pread_pages, fallback
+                    ),
+                ):
+                    by_addr[a] = r
+            return [by_addr[a] for a in addresses]
         return await asyncio.get_event_loop().run_in_executor(
             None, self._pread_pages, addresses
         )
@@ -252,8 +292,11 @@ class CachedFileReader:
 
     async def read_at_async(self, pos: int, size: int) -> bytes:
         """read_at that never blocks the event loop on disk: cached
-        pages are served inline; missing pages are pread in one
-        executor hop.  Cache insertion
+        pages are served inline; missing pages are SUBMITTED to the
+        loop's io_uring reader (storage/uring.py — true async reads
+        with no thread hop, the reference's DmaFile-over-io_uring
+        shape, cached_file_reader.rs:28-88) or, when io_uring is
+        unavailable, pread in one executor hop.  Cache insertion
         happens back on the loop — cache mutation stays
         loop-confined."""
         if size <= 0:

@@ -27,8 +27,11 @@ arena memtables), compact (with the coalescer's ``merge_async``), the
 journal, and the scan methods: ``iter``, ``scan_page`` and
 ``scan_filter_page`` over a cached columnar ``ScanStage`` whose
 numeric filter leaves run on the tree's ``device`` (ops/query_kernels,
-K8).  The secondary-index runs and the digest methods of dbeel_tpu's
-LSMTree are later slices (ROADMAP.md).
+K8).  With ``index_fields`` every flush and compaction also writes a
+``.fidx`` index run of those value fields (storage/secondary_index.py),
+and ``scan_filter_page`` plans a selective predicate on the runs (eval
+path ``"indexed"``).  The digest methods of dbeel_tpu's LSMTree are a
+later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import logging
 import os
 import re
 from typing import AsyncIterator, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .. import flow_events
 from ..errors import (
@@ -67,6 +72,8 @@ from .entry import (
     COMPACT_INDEX_FILE_EXT,
     COMPACT_SUMS_FILE_EXT,
     DATA_FILE_EXT,
+    FIDX_FILE_EXT,
+    FIDX_SUMS_FILE_EXT,
     INDEX_FILE_EXT,
     MEMTABLE_FILE_EXT,
     SUMS_FILE_EXT,
@@ -148,6 +155,7 @@ class LSMTree:
         strategy: Optional[CompactionStrategy] = None,
         memtable_kind: str = "sorted",
         gc_grace_s: float = 0.0,
+        index_fields: Optional[list] = None,
         device=None,
     ) -> None:
         # "sorted" = SortedDict kept ordered per insert; "hash" = O(1)
@@ -179,6 +187,10 @@ class LSMTree:
         else:
             self._memtable_cls = Memtable
         self.dir_path = dir_path
+        # Secondary-index DDL: value fields whose per-table index runs
+        # the flush/compaction writers emit inline and the scan planner
+        # consults.  None/empty = no index maintenance.
+        self.index_fields = list(index_fields) if index_fields else None
         self.cache = cache
         self.capacity = capacity
         self.wal_sync = wal_sync
@@ -200,9 +212,12 @@ class LSMTree:
         self._scan_stage = None
         self._scan_stage_key: Optional[tuple] = None
         self._scan_stage_list: Optional[SSTableList] = None
-        # Secondary-index DDL, stamped on the strategy per merge as in
-        # dbeel_tpu; the port's strategies refuse a non-empty list.
-        self.index_fields: Optional[List[str]] = None
+        # Secondary-index runs: table index -> IndexRun (or None for
+        # absent/torn), loaded lazily off-loop by the scan planner;
+        # invalidated with the scan stage.  Quarantined run indices
+        # never reload until the table itself turns over.
+        self._index_runs: dict = {}
+        self._fidx_quarantined: set = set()
         self.memtable_kind = memtable_kind
         self._active = self._memtable_cls(capacity)
         # WAL appends into the active memtable since its last swap —
@@ -906,6 +921,20 @@ class LSMTree:
                 pass  # no bloom below bloom_min_size
         compaction_stats.note_sidecar(True)
         compaction_stats.note_flush(written)
+        if self.index_fields:
+            # The index run is extracted from the arena's RAM dump —
+            # the same records the C writer just emitted — so building
+            # it reads zero data-file bytes.
+            from . import secondary_index as si
+
+            nb = si.emit_run(
+                self.dir_path,
+                index,
+                self.index_fields,
+                si.rows_from_items(memtable.sorted_items()),
+                compact=False,
+            )
+            compaction_stats.note_index(nb)
 
     def _write_sstable_from_items(
         self, index: int, items: Sequence[Tuple[bytes, Tuple[bytes, int]]]
@@ -954,6 +983,21 @@ class LSMTree:
             + len(items) * 16
             + (len(bloom_bytes) if bloom_bytes is not None else 0)
         )
+        # getattr: golden-writer tests drive this method on a bare
+        # LSMTree.__new__ skeleton that never ran __init__.
+        if getattr(self, "index_fields", None):
+            # The index run comes from the same in-RAM items the writer
+            # just serialized — zero data-file reads.
+            from . import secondary_index as si
+
+            nb = si.emit_run(
+                self.dir_path,
+                index,
+                self.index_fields,
+                si.rows_from_items(items),
+                compact=False,
+            )
+            compaction_stats.note_index(nb)
 
     # ------------------------------------------------------------------
     # Compaction (lsm_tree.rs:950-1156)
@@ -1027,6 +1071,10 @@ class LSMTree:
                 if not keep_tombstones and self.gc_grace_s > 0
                 else None
             )
+            # Index DDL rides the strategy the same way: every built-in
+            # merge emits a compact_fidx run from its still-resident
+            # output buffers when this is set (the pipeline of merges
+            # of 64 MiB or more emits none, as in dbeel_tpu).
             self.strategy.index_fields = self.index_fields
             merge_async = getattr(self.strategy, "merge_async", None)
             if merge_async is not None:
@@ -1161,6 +1209,44 @@ class LSMTree:
                 ),
             ]
         )
+        # Secondary-index run: when the merge emitted one, it rides the
+        # SAME action journal — data and index runs rename (and below,
+        # retire) in lockstep, so a crash replay can never leave one
+        # without the other.
+        compact_fidx = os.path.join(
+            self.dir_path,
+            file_name(output_index, COMPACT_FIDX_FILE_EXT),
+        )
+        if os.path.exists(compact_fidx):
+            try:
+                compaction_stats.note_index(
+                    os.path.getsize(compact_fidx)
+                )
+            except OSError:
+                pass
+            renames.append(
+                [
+                    compact_fidx,
+                    os.path.join(
+                        self.dir_path,
+                        file_name(output_index, FIDX_FILE_EXT),
+                    ),
+                ]
+            )
+            renames.append(
+                [
+                    os.path.join(
+                        self.dir_path,
+                        file_name(
+                            output_index, COMPACT_FIDX_SUMS_FILE_EXT
+                        ),
+                    ),
+                    os.path.join(
+                        self.dir_path,
+                        file_name(output_index, FIDX_SUMS_FILE_EXT),
+                    ),
+                ]
+            )
         deletes = [p for t in inputs for p in t.paths()]
         action_path = os.path.join(
             self.dir_path, file_name(output_index, COMPACT_ACTION_FILE_EXT)
@@ -1314,6 +1400,11 @@ class LSMTree:
             self._scan_stage_key = None
             self._scan_stage_list.release()
             self._scan_stage_list = None
+        # Index runs are per-table immutable artifacts, but the cache
+        # is keyed by table index: drop them with the stage so stale
+        # runs never outlive the tables they describe.
+        if self._index_runs:
+            self._index_runs = {}
 
     async def _current_scan_stage(self):
         """The cached vectorized stage for the CURRENT tree state, or
@@ -1461,6 +1552,145 @@ class LSMTree:
             with_values,
         )
 
+    def _quarantine_index_run(self, tidx: int) -> None:
+        """Contain a corrupt secondary-index run WITHOUT touching its
+        data table: the run is a derived artifact, so it moves to
+        quarantine/ alone (the triplet keeps serving) and the caller
+        surfaces a retryable CorruptedFile — the client's retry
+        replans without the run."""
+        from . import secondary_index as si
+
+        if tidx in self._fidx_quarantined:
+            return
+        self._fidx_quarantined.add(tidx)
+        self._index_runs[tidx] = None
+        self.durability["checksum_failures"] += 1
+        si.index_stats.note_quarantine()
+        fidx_p, fsums_p = si.run_paths(self.dir_path, tidx)
+        qdir = os.path.join(self.dir_path, QUARANTINE_DIR)
+        log.error(
+            "quarantining corrupt index run %s (data table stays "
+            "live)",
+            fidx_p,
+        )
+
+        def _move():
+            os.makedirs(qdir, exist_ok=True)
+            for p in (fidx_p, fsums_p):
+                try:
+                    if os.path.exists(p):
+                        os.replace(
+                            p,
+                            os.path.join(qdir, os.path.basename(p)),
+                        )
+                except OSError:
+                    log.warning(
+                        "index-run quarantine move failed for %s", p
+                    )
+
+        # The loader reads the whole file and closes it, so nothing
+        # holds the run open — the move needs no reader drain.
+        asyncio.get_event_loop().run_in_executor(None, _move)
+
+    async def _load_index_runs(self, stage) -> dict:
+        """stage source position -> IndexRun for every staged table
+        with a usable run, loading uncached runs off-loop.  A
+        provably-corrupt run quarantines (alone) and raises a
+        retryable CorruptedFile tagged ``index_run_only``."""
+        from . import secondary_index as si
+
+        runs_by_src: dict = {}
+        loop = asyncio.get_event_loop()
+        for s, source in enumerate(stage.sources):
+            if isinstance(source, list):
+                continue
+            tidx = source.table.index
+            if tidx in self._fidx_quarantined:
+                continue
+            if tidx not in self._index_runs:
+                try:
+                    run = await loop.run_in_executor(
+                        None, si.load_run, self.dir_path, tidx
+                    )
+                except CorruptedFile as e:
+                    self._quarantine_index_run(tidx)
+                    e.index_run_only = True
+                    raise
+                self._index_runs[tidx] = run
+            run = self._index_runs[tidx]
+            if run is not None:
+                runs_by_src[s] = run
+        return runs_by_src
+
+    async def _scan_filter_indexed(
+        self,
+        stage,
+        start: int,
+        end: int,
+        start_after,
+        prefix,
+        limit: int,
+        max_bytes: int,
+        where,
+        agg,
+    ):
+        """Index-planned page: ``(pos, more, sbytes, matched,
+        partial)`` or None (planner miss — the caller runs the
+        vectorized evaluator).  The window cut is the exact
+        ``select_window`` the non-indexed path uses; only the
+        EVALUATION shrinks, to a golden ``match_entry`` re-check of
+        the index's candidate rows — so results, covers and
+        accounting cannot diverge."""
+        from .. import query as Q
+        from . import query_vec
+        from . import secondary_index as si
+        from .entry import ENTRY_HEADER_SIZE
+
+        runs_by_src = await self._load_index_runs(stage)
+
+        def _plan_and_select():
+            cand = si.candidate_mask(
+                stage, where, runs_by_src, self.index_fields
+            )
+            if cand is None:
+                return None
+            pos, more, sbytes = stage.select_window(
+                start, end, start_after, prefix, limit, max_bytes
+            )
+            flags = np.zeros(pos.size, dtype=bool)
+            csub = np.flatnonzero(cand[pos])
+            vlen = stage.vlen
+            for i in csub.tolist():
+                p = int(pos[i])
+                if vlen[p] == 0:
+                    continue  # tombstone: matches nothing
+                source = stage.sources[int(stage.src[p])]
+                if isinstance(source, list):
+                    value = source[int(stage.off[p])][1]
+                else:
+                    value = source.value_at(
+                        int(stage.off[p])
+                        + ENTRY_HEADER_SIZE
+                        + int(stage.klen[p]),
+                        int(vlen[p]),
+                    )
+                if Q.match_entry(where, stage.key_at(p), value):
+                    flags[i] = True
+            matched = pos[flags]
+            partial = (
+                query_vec.agg_partial_for(stage, matched, agg)
+                if agg is not None
+                else None
+            )
+            return pos, more, sbytes, matched, partial
+
+        # Candidate-mask searchsorteds + per-candidate value reads:
+        # off-loop (a selective predicate touches few values, but the
+        # membership probe is O(stage rows) per leaf).
+        return await asyncio.get_event_loop().run_in_executor(
+            None, _plan_and_select
+        )
+
     async def scan_filter_page(
         self,
         start: int,
@@ -1487,8 +1717,9 @@ class LSMTree:
         (or, with ``agg``, just a partial state); mark emits EVERY
         newest-per-key row as [key, payload, ts, flag] so the
         coordinator's newest-wins dedup decides acceptance.
-        ``eval_path`` says which evaluator ran ("device" / "numpy" /
-        "cached" / "golden") for the stats plane: "device" when a
+        ``eval_path`` says which evaluator ran ("indexed" / "device" /
+        "numpy" / "cached" / "golden") for the stats plane: "indexed"
+        when the secondary-index runs planned the page, "device" when a
         numeric leaf ran a filter kernel on the tree's ``device`` (the
         card, or with ``"cpu"`` the kernel's plain version)."""
         from .. import query as Q
@@ -1506,15 +1737,52 @@ class LSMTree:
             if hold_list is not None:
                 hold_list.acquire()
         try:
-            # The secondary-index plan of dbeel_tpu (index runs
-            # consulted for the candidate rows) waits for the index
-            # slice; the port's strategies refuse index_fields, so a
-            # tree never has them yet.
-            if self.index_fields:
-                raise NotImplementedError(
-                    "index-planned scan pages are not ported yet "
-                    "(ROADMAP.md Queue 1 item 3: secondary indexes)"
+            # Secondary-index plan: when this collection
+            # declares indexed fields and the spec is plannable
+            # (predicate present, drop mode, no agg or count — other
+            # aggs need the full field column anyway), consult the
+            # per-table index runs to shrink the exact evaluation to
+            # the candidate rows inside the SAME select_window cut.
+            # Windows, covers and scanned-byte accounting are shared
+            # with the non-indexed path, so results stay
+            # byte-identical; a planner miss falls through to the
+            # vectorized evaluator below.
+            if (
+                self.index_fields
+                and where is not None
+                and mode == Q.MODE_DROP
+                and (agg is None or agg.get("op") == "count")
+            ):
+                got = await self._scan_filter_indexed(
+                    stage, start, end, start_after, prefix, limit,
+                    max_bytes, where, agg,
                 )
+                if got is not None:
+                    pos, more, sbytes, matched, partial = got
+                    cover = (
+                        stage.key_at(int(pos[-1]))
+                        if pos.size
+                        else None
+                    )
+                    entries = []
+                    if agg is None:
+                        for j in range(0, len(matched), 512):
+                            entries.extend(
+                                stage.entries_at(
+                                    matched[j : j + 512],
+                                    with_values,
+                                )
+                            )
+                            await asyncio.sleep(0)
+                    return (
+                        entries,
+                        more,
+                        cover,
+                        int(pos.size),
+                        int(sbytes),
+                        partial,
+                        "indexed",
+                    )
             need_build = bool(
                 Q.spec_fields(where, agg)
                 - set(stage._field_cols)
@@ -1619,15 +1887,19 @@ class LSMTree:
             # page: quarantine the attributed table so repair starts
             # NOW, then error retryably (the coordinator stream dies
             # and the client resumes elsewhere) — same contract as
-            # the unfiltered staged path.
-            self.quarantine_by_exception(
-                e,
-                [
-                    s.table
-                    for s in stage.sources
-                    if not isinstance(s, list)
-                ],
-            )
+            # the unfiltered staged path.  A corrupt INDEX RUN is
+            # contained separately (_quarantine_index_run): the data
+            # triplet is untouched, so it must NOT be quarantined
+            # off the run's path attribution.
+            if not getattr(e, "index_run_only", False):
+                self.quarantine_by_exception(
+                    e,
+                    [
+                        s.table
+                        for s in stage.sources
+                        if not isinstance(s, list)
+                    ],
+                )
             raise
         finally:
             if hold_list is not None:

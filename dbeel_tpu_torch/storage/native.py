@@ -14,6 +14,7 @@ binds what it calls:
 * the arena memtable and its single-pass flush (``storage/memtable.py``);
 * the WAL appender, its group-commit syncer and the io_uring sync hub
   (``storage/wal.py``);
+* the io_uring page reader of cold point reads (``storage/uring.py``);
 * the k-way merge, ``NativeMergeStrategy`` below, with its chunked and
   overlapped file IO and the page-CRC kernel of the inline sidecar.
 
@@ -38,7 +39,6 @@ from .bloom import BloomFilter, _SEED1, _SEED2
 from .compaction import (
     CompactionStrategy,
     MergeResult,
-    _no_index_runs,
     _write_bloom,
 )
 from .entry import (
@@ -142,6 +142,17 @@ _PROTOTYPES = {
     "dbeel_walsync_hub_eventfd": (_i32, [_vp]),
     "dbeel_walsync_hub_reap": (None, [_vp]),
     "dbeel_walsync_errors": (_u64, []),
+    # The io_uring page reader (storage/uring.py): (ring, fd, buffer,
+    # length, offset, tag) for the reads.
+    "dbeel_uring_create": (_vp, [ctypes.c_uint]),
+    "dbeel_uring_destroy": (None, [_vp]),
+    "dbeel_uring_eventfd": (_int, [_vp]),
+    "dbeel_uring_queue_read": (_int, [_vp, _int, _vp, _u32, _u64, _u64]),
+    "dbeel_uring_submit_read": (_int, [_vp, _int, _vp, _u32, _u64, _u64]),
+    "dbeel_uring_flush": (_int, [_vp]),
+    "dbeel_uring_reap": (
+        _int, [_vp, _u64p, ctypes.POINTER(_i32), _int]
+    ),
     # The k-way merge and its file IO.
     "dbeel_merge": (_i64, _MERGE_IN + _MERGE_OUT),
     "dbeel_merge_cb": (_i64, _MERGE_IN + _MERGE_OUT + [TICK_FN, _u64]),
@@ -359,7 +370,6 @@ class NativeMergeStrategy(CompactionStrategy):
         bloom_min_size,
     ) -> MergeResult:
         lib = require()
-        _no_index_runs(self.index_fields)
         throttle = self.throttle
         # Chunked, throttle-ticked IO: one unbroken multi-hundred-MB
         # read or write starves a serving loop; with a tick between
@@ -546,4 +556,19 @@ class NativeMergeStrategy(CompactionStrategy):
             bloom_bytes,
             ext=COMPACT_SUMS_FILE_EXT,
         )
+
+        if self.index_fields and n_out > 0:
+            # The index run is extracted from the same resident
+            # out_data/out_index buffers the C merge just filled — like
+            # the inline sidecar above, it adds zero data-file reads.
+            from . import secondary_index as si
+
+            rec = np.frombuffer(out_index[: n_out * 16], dtype=_RECORD)
+            si.emit_run(
+                dir_path,
+                output_index,
+                self.index_fields,
+                si.rows_from_blob(out_data, rec, n_out),
+                compact=True,
+            )
         return MergeResult(n_out, data_size, wrote_bloom)

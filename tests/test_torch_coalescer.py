@@ -38,6 +38,7 @@ from dbeel_tpu_torch.storage.compaction import get_strategy as tget
 from dbeel_tpu_torch.storage.entry import file_name
 from dbeel_tpu_torch.storage.entry_writer import EntryWriter
 from dbeel_tpu_torch.storage.sstable import SSTable as TSSTable
+from dbeel_tpu_torch.utils import msgpack_codec
 
 SENT = 0xFFFFFFFF
 
@@ -141,6 +142,26 @@ def _stage_tables(d, base_idx, runs, per, seed):
         for key in sorted({f"{base_idx}-{rng.randrange(10**6):06d}".encode()
                            for _ in range(per)}):
             w.write(key, b"v", rng.randrange(1, 10**9))
+        w.close()
+    return [base_idx + 2 * r for r in range(runs)]
+
+
+def _stage_doc_tables(d, base_idx, runs, per, seed):
+    """Like ``_stage_tables`` with msgpack documents for values: a
+    ``score`` of every lane type (ints, floats, strings, bools), some
+    documents without it, and tombstones."""
+    rng = random.Random(seed)
+    scores = [lambda: rng.randrange(-50, 50), lambda: rng.random() * 100,
+              lambda: f"s{rng.randrange(99):02d}", lambda: True]
+    for r in range(runs):
+        w = EntryWriter(d, base_idx + 2 * r, None)
+        for key in sorted({f"{base_idx}-{rng.randrange(400):06d}".encode()
+                           for _ in range(per)}):
+            roll = rng.random()
+            doc = ({} if roll < 0.1 else
+                   {"score": rng.choice(scores)(), "r": r})
+            w.write(key, b"" if roll > 0.93 else msgpack_codec.packb(doc),
+                    rng.randrange(1, 10**9))
         w.close()
     return [base_idx + 2 * r for r in range(runs)]
 
@@ -289,7 +310,8 @@ def test_failed_launch_raises_without_host_merge(tmp_dir, monkeypatch):
 
 def test_get_strategy_coalesced_and_sync_merge(tmp_dir, monkeypatch):
     """``coalesced`` on the CPU takes the CPU's own default coalescer;
-    its sync merge (recovery) equals the heap merge."""
+    its sync merge (recovery) equals the heap merge, and with index
+    fields its ``merge_async`` writes dbeel_tpu's index run."""
     s = tget("coalesced", device="cpu")
     assert s.name == "coalesced" and s.device.type == "cpu"
     assert s.coalescer is tco.default_coalescer("cpu")
@@ -306,11 +328,24 @@ def test_get_strategy_coalesced_and_sync_merge(tmp_dir, monkeypatch):
         for f in out[name]:
             os.unlink(os.path.join(tmp_dir, f))
     assert out["coalesced"] == out["heap"] and out["heap"]
-    s.index_fields = ["score"]
-    with pytest.raises(NotImplementedError, match="secondary-index.*Queue 1 item 3"):
-        asyncio.run(s.merge_async(
-            [TSSTable(tmp_dir, i, None) for i in idx], tmp_dir, 11, None,
-            False, 1))
+    # With index fields the coalesced merge also writes the output's
+    # compact_fidx run, SHA-256-equal to dbeel_tpu's coalesced merge.
+    doc_idx = _stage_doc_tables(tmp_dir, 200, 3, 80, 9)
+    runs = []
+    for strat, table_cls, oi in (
+        (s, TSSTable, 211), (jco.CoalescedDeviceMergeStrategy(), JSSTable, 213),
+    ):
+        strat.index_fields = ["score"]
+        srcs = [table_cls(tmp_dir, i, None) for i in doc_idx]
+        asyncio.run(strat.merge_async(srcs, tmp_dir, oi, None, False, 1))
+        for t in srcs:
+            t.close()
+        runs.append([
+            hashlib.sha256(open(os.path.join(
+                tmp_dir, file_name(oi, ext)), "rb").read()).hexdigest()
+            for ext in ("compact_data", "compact_fidx", "compact_fidx_sums")
+        ])
+    assert runs[0] == runs[1]
 
 
 class _FakeTree:

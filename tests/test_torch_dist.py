@@ -44,6 +44,7 @@ from dbeel_tpu_torch.storage.compaction import get_strategy as tget
 from dbeel_tpu_torch.storage.entry import file_name
 from dbeel_tpu_torch.storage.native import load as native_load
 from dbeel_tpu_torch.storage.sstable import SSTable as TTable
+from dbeel_tpu_torch.utils import msgpack_codec
 
 CPU = torch.device("cpu")
 SENT = 0xFFFFFFFF
@@ -708,10 +709,23 @@ def _dir_digest(d):
     return out
 
 
-def _tree_digest(d, tree_cls, strategy, keep):
+def _tree_digest(d, tree_cls, strategy, keep, index_fields=None):
+    """SHA-256 of a tree's files after writes, a flush and a major
+    compaction.  With ``index_fields`` the values are msgpack documents
+    holding those fields (the rows, and so the kernel shapes, are the
+    same)."""
+
+    def value(j):
+        if not index_fields:
+            return f"val{j}".encode()
+        doc = {f: (j % 113 - 40 if j % 3 else f"v{j % 71}")
+               for f in index_fields}
+        return msgpack_codec.packb(doc if j % 17 else {"other": j})
+
     async def main():
         tree = tree_cls.open_or_create(
-            d, capacity=300, strategy=strategy, bloom_min_size=1000
+            d, capacity=300, strategy=strategy, bloom_min_size=1000,
+            index_fields=index_fields,
         )
         rng = random.Random(42)
         # Diverse first words, so the exchange holds every bucket.
@@ -723,7 +737,7 @@ def _tree_digest(d, tree_cls, strategy, keep):
         ]
         keys += [rng.randbytes(rng.randint(4, 12)) for _ in range(300)]
         for j, k in enumerate(keys):
-            await tree.set_with_timestamp(k, f"val{j}".encode(), 10_000 + j)
+            await tree.set_with_timestamp(k, value(j), 10_000 + j)
         for j, k in enumerate(keys[::13]):
             await tree.delete_with_timestamp(k, 90_000 + j)
         others = [
@@ -758,10 +772,19 @@ def test_distributed_strategy_files_identical(tmp_dir, keep):
 
 
 def test_distributed_strategy_refuses_index_runs(tmp_dir):
-    strategy = tdm.DistributedMergeStrategy(cpu_mesh(2))
-    strategy.index_fields = ["score"]
-    with pytest.raises(NotImplementedError, match="secondary-index.*Queue 1 item 3"):
-        strategy.merge([], tmp_dir, 1, None, False, 1)
+    """With index fields the sample sort writes the output's index run
+    (and its data) SHA-256-equal to dbeel_tpu's distributed merge."""
+    ref = _tree_digest(f"{tmp_dir}/jdist", JTree,
+                       jdm.DistributedMergeStrategy(jmesh(4)), False,
+                       index_fields=["score"])
+    before = dict(tdm.dist_stats)
+    got = _tree_digest(f"{tmp_dir}/tdist", TTree,
+                       tdm.DistributedMergeStrategy(cpu_mesh(4)), False,
+                       index_fields=["score"])
+    assert tdm.dist_stats["runs"] == before["runs"] + 1
+    runs = {f: h for f, h in got.items() if f.endswith(("fidx", "fidx_sums"))}
+    assert len(runs) == 2
+    assert got == ref
 
 
 # ----------------------------------------------------------------------

@@ -31,7 +31,9 @@ for name in ("dbeel_tpu_torch.server.coalescer",
              "dbeel_tpu_torch.parallel.dist_merge",
              "dbeel_tpu_torch.ops.merge",
              "dbeel_tpu_torch.storage.native",
-             "dbeel_tpu_torch.storage.wal"):
+             "dbeel_tpu_torch.storage.wal",
+             "dbeel_tpu_torch.storage.secondary_index",
+             "dbeel_tpu_torch.storage.uring"):
     assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules

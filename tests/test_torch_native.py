@@ -30,6 +30,7 @@ from dbeel_tpu_torch.storage.compaction import get_strategy as tget
 from dbeel_tpu_torch.storage.entry import file_name
 from dbeel_tpu_torch.storage.memtable import ArenaMemtable as TArena
 from dbeel_tpu_torch.storage.sstable import SSTable as TTable
+from dbeel_tpu_torch.utils import msgpack_codec
 
 @pytest.fixture(autouse=True)
 def _native_library():
@@ -246,14 +247,43 @@ def test_native_merge_equals_reference(tmp_dir, monkeypatch, case):
 
 
 def test_native_merge_refuses_index_runs(tmp_dir):
-    idx = _write_runs(tmp_dir, 9, [50, 50])
-    strategy = tget("native")
-    strategy.index_fields = ["score"]
-    srcs = [TTable(tmp_dir, i, None) for i in idx]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        strategy.merge(srcs, tmp_dir, 5, None, False, 1)
-    for s in srcs:
-        s.close()
+    """With index fields the native merge writes the output's index run
+    from its resident buffers, SHA-256-equal to dbeel_tpu's native
+    merge and to the port's heap merge."""
+    rng = np.random.default_rng(9)
+    for r, n in enumerate([300, 250, 200]):
+        entries = {}
+        for _ in range(n):
+            key = b"k%05d" % rng.integers(0, 600)
+            roll = rng.random()
+            score = (int(rng.integers(-1 << 60, 1 << 60)) if roll < 0.3
+                     else float(rng.normal()) if roll < 0.6
+                     else bytes(rng.integers(0, 3, size=int(rng.integers(0, 20)))
+                                .astype(np.uint8)) if roll < 0.85
+                     else None)
+            doc = {} if score is None else {"score": score, "r": r}
+            value = b"" if rng.random() < 0.1 else msgpack_codec.packb(doc)
+            entries[key] = (value, int(rng.integers(1, 1 << 40)))
+        write_sstable_fixture(
+            tmp_dir, r * 2, [(k, v, ts) for k, (v, ts) in sorted(entries.items())]
+        )
+    shas = []
+    for table_cls, strategy, out in (
+        (JTable, jnative.NativeMergeStrategy(), 101),
+        (TTable, tget("native"), 103),
+        (TTable, tget("heap"), 105),
+    ):
+        strategy.index_fields = ["score"]
+        srcs = [table_cls(tmp_dir, i, None) for i in (0, 2, 4)]
+        strategy.merge(srcs, tmp_dir, out, None, False, 1)
+        for s in srcs:
+            s.close()
+        shas.append({
+            ext: _digests(tmp_dir).get(file_name(out, ext))
+            for ext in ("compact_data", "compact_fidx", "compact_fidx_sums")
+        })
+    assert shas[0] == shas[1] == shas[2]
+    assert all(shas[1].values())
 
 
 def test_native_helpers_equal_reference():
