@@ -7,7 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 (``--only kernels,mesh`` runs phase 1 and the named phases alone —
 e.g. ``--only mesh`` on a host with four cards, where phase 7's
-partitions take one card each.)
+partitions take one card each, or ``--only planes`` for phase 10,
+which then merges its keyspace unthrottled itself.)
 
 Phases (any failure exits non-zero):
 
@@ -125,19 +126,33 @@ Phases (any failure exits non-zero):
                 major compaction through the pipeline (K1), which writes
                 no index run, as in dbeel_tpu, so a 0.1% scan misses the
                 planner and still equals the oracle.
+ 10. planes   — the server's share scheduler around a merge on the card,
+                as a shard wires it: config.parse_args([]) gives the
+                shares (1000/250, asserted), ShareScheduler is built from
+                them and the strategy's throttle is its thread_throttle();
+                phase 3's dense-cluster keyspace (4 x 2^18 keys) merges
+                twice through get_strategy("device"), each an executor
+                unit inside bg_slice() on an event loop: idle (nothing
+                marks foreground; throttled 0 s, asserted) and busy (a
+                thread calls fg_mark() every 10 ms; precharged and
+                throttled > 0 s, asserted).  Each output SHA-256-equal to
+                phase 3's unthrottled merge, each with phase 3's launches
+                (K1 x2, K2 x1); the busy/idle wall ratio is logged beside
+                1 + fg/bg.
 
-Phases 3-6 and 9 run on get_strategy("device"), so their routes hold
+Phases 3-6, 9 and 10 run on get_strategy("device"), so their routes hold
 on a host with several cards, where get_strategy("auto") is the
 distributed backend (asserted: "device" on one card, "distributed" on
 several).
 
-The main path is sixteen runs — the bench merge, the dense merge, the
+The main path is eighteen runs — the bench merge, the dense merge, the
 two trees' major compactions, the shards' writes with their flushes,
 the shards' compaction, the scan collection's compaction and its
 filtered scans, the mesh phase's mesh_wide compaction, its K7
 cross-check, mesh_hot, mesh_skew and mesh_big, the arena tree's
-major compaction, and the indexed collection's tiered merges and its
-major compaction.  The kernel launch
+major compaction, the indexed collection's tiered merges and its
+major compaction, and the planes phase's idle and busy throttled
+merges.  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -1456,8 +1471,9 @@ def build_dense_runs(np, dir_path, per_run, n_runs):
     return [r * 2 for r in range(n_runs)]
 
 
-def _merge(strategy, dir_path, indices, out_index):
-    from dbeel_tpu_torch.storage.entry import file_name
+def _merge_only(strategy, dir_path, indices, out_index):
+    """One strategy.merge of the tables ``indices``: (entries out,
+    entries in, seconds)."""
     from dbeel_tpu_torch.storage.sstable import SSTable
 
     sources = [SSTable(dir_path, i, None) for i in indices]
@@ -1467,6 +1483,13 @@ def _merge(strategy, dir_path, indices, out_index):
     total_in = sum(s.entry_count for s in sources)
     for s in sources:
         s.close()
+    return result.entry_count, total_in, elapsed
+
+
+def _output_digest(dir_path, out_index):
+    """SHA-256 of a merge's output files, which it then removes."""
+    from dbeel_tpu_torch.storage.entry import file_name
+
     digest = hashlib.sha256()
     for ext in ("compact_data", "compact_index", "compact_bloom",
                 "compact_sums"):
@@ -1474,7 +1497,15 @@ def _merge(strategy, dir_path, indices, out_index):
         with open(p, "rb") as f:
             digest.update(f.read())
         os.unlink(p)
-    return total_in / elapsed, result.entry_count, digest.hexdigest(), elapsed
+    return digest.hexdigest()
+
+
+def _merge(strategy, dir_path, indices, out_index):
+    n_out, total_in, elapsed = _merge_only(
+        strategy, dir_path, indices, out_index
+    )
+    digest = _output_digest(dir_path, out_index)
+    return total_in / elapsed, n_out, digest, elapsed
 
 
 def _main_path_run(fn):
@@ -1582,6 +1613,7 @@ def phase_compaction(torch, np, card, total_keys, strategy):
     if dense["K2"] == 0:
         raise AssertionError(f"dense merge did not launch K2: {dense}")
     shutil.rmtree(d)
+    runs_kept["dense"] = dict(n=n_a, sha=sha_a, launches=dense)
     return {"bench": bench, "dense": dense}, runs_kept
 
 
@@ -3119,10 +3151,122 @@ def check_index_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 10: the share scheduler throttling a merge on the card
+# ----------------------------------------------------------------------
+
+# Foreground cadence of the busy run: one request every 10 ms.
+PLANES_MARK_S = 0.01
+
+
+def _fg_marks(scheduler, stop):
+    """Foreground traffic from another thread: fg_mark() every
+    PLANES_MARK_S until ``stop`` is set."""
+    while not stop.wait(PLANES_MARK_S):
+        scheduler.fg_mark()
+
+
+async def _throttled_unit(scheduler, strategy, d, idx, out_index):
+    """One background unit as a shard runs a compaction: the merge in
+    an executor thread inside scheduler.bg_slice(), the strategy's
+    throttle from scheduler.thread_throttle() (dbeel_tpu/server/
+    shard.py:833).  Returns _merge_only's result and the unit's wall
+    seconds (the merge, its ticks' sleeps and the slice's payback)."""
+    loop = asyncio.get_running_loop()
+    strategy.throttle = scheduler.thread_throttle()
+    try:
+        t0 = time.perf_counter()
+        async with scheduler.bg_slice():
+            result = await loop.run_in_executor(
+                None, _merge_only, strategy, d, idx, out_index
+            )
+        return result, time.perf_counter() - t0
+    finally:
+        strategy.throttle = None
+
+
+def phase_planes(torch, np, strategy, dense=None):
+    """The dense merge of phase 3 on the card under the port's share
+    scheduler, built from the port's config as the shard builds it
+    (dbeel_tpu/server/shard.py:243-248): once with no foreground
+    traffic, once with a request every 10 ms.  ``dense`` is phase 3's
+    unthrottled result (n, sha, launches); without it (``--only
+    planes``) the phase merges the keyspace unthrottled itself, held
+    against the cpu merge, outside the main path's counts."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.ops import bitonic as B
+    from dbeel_tpu_torch.server.scheduler import ShareScheduler
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+
+    cfg = config.parse_args([])
+    shares = (cfg.foreground_tasks_shares, cfg.background_tasks_shares)
+    if shares != (1000, 250):
+        raise AssertionError(f"config shares {shares}, want (1000, 250)")
+    scheduler = ShareScheduler(*shares)
+    d = os.path.join(WORK, "planes")
+    os.makedirs(d)
+    idx = build_dense_runs(np, d, 1 << 18, 4)
+    if dense is None:
+        B.reset_launches()
+        _, n, sha, _ = _merge(strategy, d, idx, 101)
+        dense = dict(n=n, sha=sha, launches=dict(B.launches))
+        _, n_cpu, sha_cpu, _ = _merge(get_strategy("cpu"), d, idx, 103)
+        if (n, sha) != (n_cpu, sha_cpu):
+            raise AssertionError("dense merge differs from the cpu merge")
+    runs, walls = {}, {}
+    for name, busy in (("planes_idle", False), ("planes_busy", True)):
+        before = scheduler.stats()
+        stop = threading.Event()
+        marks = threading.Thread(target=_fg_marks, args=(scheduler, stop))
+        if busy:
+            marks.start()
+        try:
+            ((n, _, merge_s), wall), counts = _main_path_run(
+                lambda: asyncio.run(
+                    _throttled_unit(scheduler, strategy, d, idx, 109)
+                )
+            )
+        finally:
+            stop.set()
+            if busy:
+                marks.join(timeout=10)
+        if marks.is_alive():
+            raise AssertionError("the foreground thread did not stop")
+        after = scheduler.stats()
+        sha = _output_digest(d, 109)
+        delta = {k: round(after[k] - before[k], 6) for k in (
+            "foreground_ops", "background_busy_s",
+            "background_throttled_s", "background_precharged_s")}
+        walls[name] = wall
+        runs[name] = counts
+        log(f"planes {name}: unit {wall:.3f}s (merge {merge_s:.3f}s), "
+            f"launches {counts}, sha256 equal to phase 3's dense merge: "
+            f"{(n, sha) == (dense['n'], dense['sha'])}, this run's "
+            f"scheduler {json.dumps(delta, sort_keys=True)}; stats() "
+            f"{json.dumps(after, sort_keys=True)}")
+        if (n, sha) != (dense["n"], dense["sha"]):
+            raise AssertionError(f"{name} output differs from the dense merge")
+        if counts != dense["launches"] or not (counts["K1"] and counts["K2"]):
+            raise AssertionError(
+                f"{name} launches {counts}, want {dense['launches']}"
+            )
+        if delta["background_precharged_s"] <= 0:
+            raise AssertionError(f"{name}: the merge never ticked")
+        if busy and delta["background_throttled_s"] <= 0:
+            raise AssertionError("busy run: the merge was not throttled")
+        if not busy and delta["background_throttled_s"] != 0:
+            raise AssertionError("idle run: throttled with no foreground")
+    ratio = walls["planes_busy"] / walls["planes_idle"]
+    log(f"planes: busy/idle unit {ratio:.3f} "
+        f"(1 + fg/bg = {1 + shares[0] / shares[1]:g})")
+    shutil.rmtree(d)
+    return runs
+
+
+# ----------------------------------------------------------------------
 
 
 PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena",
-          "index")
+          "index", "planes")
 
 
 def main(argv=None) -> int:
@@ -3132,7 +3276,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", default=",".join(PHASES),
         help="comma-separated phases to run after phase 1 "
-             f"(default: all of {','.join(PHASES)})",
+             f"(default: all of {','.join(PHASES)}; planes without "
+             "compaction merges the dense keyspace unthrottled itself)",
     )
     args = parser.parse_args(argv)
     only = [p for p in args.only.split(",") if p]
@@ -3206,6 +3351,10 @@ def main(argv=None) -> int:
             index_runs = phase_index(torch, np, strategy=strategy)
             check_index_launches(index_runs)
             runs.update(index_runs)
+        if "planes" in only:
+            runs.update(phase_planes(
+                torch, np, strategy, bench["dense"] if bench else None
+            ))
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.
