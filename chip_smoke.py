@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 (``--only kernels,mesh`` runs phase 1 and the named phases alone —
 e.g. ``--only mesh`` on a host with four cards, where phase 7's
-partitions take one card each, or ``--only planes`` for phase 10,
-which then merges its keyspace unthrottled itself.)
+partitions take one card each, ``--only planes`` for phase 10,
+which then merges its keyspace unthrottled itself, or ``--only
+serving`` for phase 11.)
 
 Phases (any failure exits non-zero):
 
@@ -73,7 +74,15 @@ Phases (any failure exits non-zero):
                 pass and a keys-only scan_page pass, paged as a shard
                 pages them (limit 65536, 256 KiB), each held against a
                 dict oracle; the numeric leaves run on K8a (4 launches)
-                and K8b (1).
+                and K8b (1).  Then scan_plane, the coordinator side: a
+                filtered scan with a comparison leaf and a range leaf
+                through ScanPlane.handle("scan"), resumed chunk by chunk
+                (the default scan_bytes_per_slice) until the cursor is
+                nil, and a filtered count aggregate, over the same tree;
+                the SCAN pages come from a stub shard standing in for
+                MyShard (ROADMAP item 5(c)); rows equal the oracle, the
+                first spec page evaluates on the card (K8a and K8b) and
+                every later one reuses its mask.
   7. mesh     — the distributed backend over 4 partitions placed
                 round-robin on min(4, cards) cards (all on cuda:0 with
                 one card): mesh_wide — BASELINE.json configs[3], one
@@ -106,7 +115,7 @@ Phases (any failure exits non-zero):
                 ring; else the C sync thread, asserted, and the reason
                 logged) — in fewer syncs than writes, and its WAL
                 replays every acknowledged write after close().
-  9. index    — one shard's indexed collection: 1,000,000 documents of
+  9. index    — one shard's indexed collection: 500,000 documents of
                 blackbox_bench.py --scan-filter-indexed (index_fields
                 ["v"], a 1 << 14-entry memtable, the write order
                 shuffled from seed 7) into LSMTree(memtable_kind="auto")
@@ -139,20 +148,46 @@ Phases (any failure exits non-zero):
                 phase 3's unthrottled merge, each with phase 3's launches
                 (K1 x2, K2 x1); the busy/idle wall ratio is logged beside
                 1 + fg/bg.
+ 11. serving  — the native serving planes on the server's defaults
+                (config.parse_args([])): serving_dp feeds the arena
+                phase's 393216 ops (16-character string keys, 64 B
+                values, seed 7) as set/delete frames through
+                DataPlane.try_handle (a punt takes the interpreted
+                write; each flush the flags ask for is spawned), compacts
+                the tree through get_strategy("auto") on the card
+                (SHA-256-equal to the cpu merge of a copy), then sends a
+                get frame for every key and 10000 absent ones: the
+                compacted table reaches the C registry through
+                write_state_listener; where the host serves
+                preadv2(RWF_NOWAIT) every get is answered natively,
+                elsewhere the present keys punt to the Python read
+                (asserted either way) and the absent ones are answered
+                natively from the bloom and prefix index; all equal the
+                oracle.  serving_migrate streams a quarter of the ring
+                out of that tree with migrate_actions under the share
+                scheduler's bg_slice into a hash-memtable tree on the
+                card (65536 entries: its flush sorts on K5), which is
+                then compacted on the card; it holds exactly the
+                oracle's keys of the range with their timestamps, and
+                the journal's last write says done.  serving_fanout runs
+                10000 quorum sets (2 acks) through QuorumFanout to two
+                loopback fake replicas; every op resolves with both
+                acks.  Writes/s, gets/s, keys/s and ops/s are logged.
 
 Phases 3-6, 9 and 10 run on get_strategy("device"), so their routes hold
 on a host with several cards, where get_strategy("auto") is the
 distributed backend (asserted: "device" on one card, "distributed" on
 several).
 
-The main path is eighteen runs — the bench merge, the dense merge, the
-two trees' major compactions, the shards' writes with their flushes,
-the shards' compaction, the scan collection's compaction and its
-filtered scans, the mesh phase's mesh_wide compaction, its K7
-cross-check, mesh_hot, mesh_skew and mesh_big, the arena tree's
-major compaction, the indexed collection's tiered merges and its
-major compaction, and the planes phase's idle and busy throttled
-merges.  The kernel launch
+The main path is twenty-one runs — the bench merge, the dense merge,
+the two trees' major compactions, the shards' writes with their
+flushes, the shards' compaction, the scan collection's compaction,
+its filtered scans and its scan-plane scan, the mesh phase's
+mesh_wide compaction, its K7 cross-check, mesh_hot, mesh_skew and
+mesh_big, the arena tree's major compaction, the indexed collection's
+tiered merges and its major compaction, the planes phase's idle and
+busy throttled merges, the data plane tree's compaction and the
+migration (its target's flushes and compaction).  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -217,11 +252,14 @@ ARENA_DURABLE = 16384
 ARENA_WRITERS = 64
 # The index phase: blackbox_bench.py --scan-filter-indexed's collection
 # (index_fields ["v"], a 1 << 14-entry memtable, the write order
-# shuffled) at the scan phase's 1,000,000 documents, on the server's
+# shuffled) at 500,000 documents (its depth cut from the scan phase's
+# 1,000,000 to keep the whole run under 900 s), on the server's
 # default memtable; its flushed tables are merged in size tiers of 8
 # (each under the pipeline's 64 MiB, so each merge is single-shot),
-# then in one major compaction (over 64 MiB: the pipeline).
-INDEX_DOCS = 1_000_000
+# then in one major compaction (~72 MB, over 64 MiB: the pipeline;
+# with far fewer documents one key-prefix group's share of a tier
+# outgrows the pipeline's partitions and the merge declines).
+INDEX_DOCS = 500_000
 INDEX_CAPACITY = 1 << 14
 INDEX_TIER = 8
 INDEX_GETS = 10_000
@@ -2236,8 +2274,12 @@ async def _drive_scan(torch, np, n, device, strategy):
         log(f"profile: first cmp evaluation wall {wall_s * 1e3:.1f}ms "
             f"(traced), device busy {busy_ms:.3f}ms = "
             f"{busy_ms / (wall_s * 1e3):.6f} of wall; top: {top}")
+    # Run scan_plane: the coordinator side of a filtered scan (phase 11's
+    # stub shard answers its SCAN pages).
+    plane_counts = await _scan_plane_run(tree, live, n)
     tree.close()
-    return {"scan_load": load_counts, "scan_filter": counts}
+    return {"scan_load": load_counts, "scan_filter": counts,
+            "scan_plane": plane_counts}
 
 
 def phase_scan(torch, np, n=SCAN_DOCS, device="cuda", strategy=None):
@@ -3197,6 +3239,7 @@ def phase_planes(torch, np, strategy, dense=None):
     from dbeel_tpu_torch.server.scheduler import ShareScheduler
     from dbeel_tpu_torch.storage.compaction import get_strategy
 
+    t_phase = time.perf_counter()
     cfg = config.parse_args([])
     shares = (cfg.foreground_tasks_shares, cfg.background_tasks_shares)
     if shares != (1000, 250):
@@ -3259,14 +3302,660 @@ def phase_planes(torch, np, strategy, dense=None):
     log(f"planes: busy/idle unit {ratio:.3f} "
         f"(1 + fg/bg = {1 + shares[0] / shares[1]:g})")
     shutil.rmtree(d)
+    log(f"planes: {time.perf_counter() - t_phase:.1f}s")
     return runs
+
+
+# ----------------------------------------------------------------------
+# Phase 11: the serving planes
+# ----------------------------------------------------------------------
+
+# The data plane's gets of keys that were never written (answered from
+# the tables' blooms and prefix index with no read), the fan-out's
+# quorum writes (2 acks of 2 replicas), and the migration target's
+# capacity: the smallest memtable whose flush sorts on the card
+# (ops.sort.DEVICE_THRESHOLD) — the default 8192 sorts on the host.
+SERVING_ABSENT = 10_000
+SERVING_FANOUT_OPS = 10_000
+SERVING_FANOUT_WINDOW = 512
+MIGRATE_CAPACITY = 1 << 16
+
+
+class _RingEntry:
+    """One shard of the ring, as MyShard's ``Shard`` entries."""
+
+    def __init__(self, node_name, name, h, connection=None):
+        self.node_name = node_name
+        self.name = name
+        self.hash = h
+        self.connection = connection
+
+
+class _StubShard:
+    """Stands in for MyShard, which the port does not have yet (ROADMAP
+    Queue 1 item 5(c)): what the scan and migration planes read of it,
+    and the SCAN peer handler of MyShard.handle_shard_request — the same
+    clamps, ``scan_filter_page``/``scan_page``, ``eval_path`` counted,
+    ``ShardResponse.scan(...)``.  One shard owning the whole ring."""
+
+    def __init__(self, tree, cfg, name="s0", rf=1):
+        from dbeel_tpu_torch.server import governor, metrics, qos, scan
+        from dbeel_tpu_torch.server.scheduler import ShareScheduler
+
+        self.id = 0
+        self.shard_name = name
+        self.config = cfg
+        self.collections = {"c": _Collection(tree, rf)}
+        self.ring = [_RingEntry("n0", name, 0x80000000)]
+        self.dead_nodes = set()
+        self.membership_epoch = 1
+        self.migrations_cancelled = 0
+        self.keys_migrated = 0
+        self.bytes_migrated = 0
+        self.dataplane = None
+        self.db_connections = []
+        self.tasks = set()
+        self.eval_paths = {}
+        self.metrics = metrics.ShardMetrics()
+        self.scheduler = ShareScheduler(cfg.foreground_tasks_shares,
+                                        cfg.background_tasks_shares)
+        self.governor = governor.LoadGovernor(self, cfg)
+        self.qos = qos.QosPlane(self, cfg)
+        self.scan_plane = scan.ScanPlane(self, cfg)
+
+    @property
+    def shards(self):
+        return self.ring
+
+    def spawn(self, coro):
+        t = asyncio.ensure_future(coro)
+        self.tasks.add(t)
+        t.add_done_callback(self.tasks.discard)
+        return t
+
+    def get_collection(self, name):
+        from dbeel_tpu_torch.errors import CollectionNotFound
+
+        if name not in self.collections:
+            raise CollectionNotFound(name)
+        return self.collections[name]
+
+    def all_arcs(self, rf):
+        s = (self.ring[0].hash + 1) & 0xFFFFFFFF
+        return [(s, s, [self.ring[0]])]
+
+    async def handle_shard_request(self, request):
+        from dbeel_tpu_torch import query as Q
+        from dbeel_tpu_torch.cluster.messages import (
+            ShardRequest, ShardResponse,
+        )
+        from dbeel_tpu_torch.server import qos
+
+        if request[1] != ShardRequest.SCAN:
+            raise AssertionError(f"stub shard: {request[1]!r} frame")
+        tree = self.collections[request[2]].tree
+        start_after = bytes(request[5]) if request[5] is not None else None
+        prefix = bytes(request[6]) if request[6] else None
+        limit = max(1, min(int(request[7]), 65536))
+        max_bytes = max(4096, min(int(request[8]), 16 << 20))
+        spec = request[10] if len(request) > 10 else None
+        self.qos.note_peer(qos.class_of(request[11]) if len(request) > 11
+                           else qos.QOS_BATCH)
+        if spec is None:
+            entries, more = await tree.scan_page(
+                int(request[3]), int(request[4]), start_after, prefix,
+                limit, max_bytes, bool(request[9]))
+            return ShardResponse.scan(entries, more)
+        where, agg, mode = Q.unpack_peer_spec(spec)
+        entries, more, cover, rows, nbytes, partial, path = (
+            await tree.scan_filter_page(
+                int(request[3]), int(request[4]), start_after, prefix,
+                limit, max_bytes, bool(request[9]), where, agg, mode))
+        self.eval_paths[path] = self.eval_paths.get(path, 0) + 1
+        plane = self.scan_plane
+        if path == "device":
+            plane.device_evals += 1
+        elif path == "indexed":
+            plane.indexed_evals += 1
+        elif path in ("numpy", "golden"):
+            plane.fallback_evals += 1
+        if partial is not None:
+            plane.agg_partials += 1
+        return ShardResponse.scan(entries, more, cover, rows, nbytes,
+                                  partial)
+
+
+class _Collection:
+    def __init__(self, tree, rf):
+        self.tree = tree
+        self.replication_factor = rf
+
+
+async def _scan_plane_stream(plane, request):
+    """scan, then scan_next until the cursor is nil, retrying a shed
+    chunk with its cursor as a client does.  Returns the decoded chunks
+    and the sheds retried."""
+    from dbeel_tpu_torch.errors import Overloaded
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    chunks, rtype, sheds = [], "scan", 0
+    while True:
+        try:
+            payload = await plane.handle(request, rtype)
+        except Overloaded:
+            sheds += 1
+            if sheds > 100:
+                raise
+            await asyncio.sleep(0.05)
+            continue
+        chunk = codec.unpackb(payload)
+        chunks.append(chunk)
+        if chunk["cursor"] is None:
+            return chunks, sheds
+        request, rtype = {"cursor": chunk["cursor"]}, "scan_next"
+
+
+async def _scan_plane_run(tree, live, n):
+    """The coordinator side of a filtered scan over phase 6's tree: a
+    comparison leaf and a range leaf through ScanPlane.handle("scan")
+    with the default scan_bytes_per_slice, chunk by chunk, then a
+    filtered count aggregate; the SCAN pages come from the stub shard.
+    Returns the launch counts."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch import query as Q
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    cfg = config.parse_args([])
+    stub = _StubShard(tree, cfg)
+    lo, hi, cut = n // 5, n // 5 + n // 20, n // 5 + n // 40
+    where = ["and", ["cmp", "v", "<", cut], ["range", "v", lo, hi]]
+    want = [(k, val) for k, (val, _ts, v) in sorted(live.items())
+            if lo <= v < cut]
+    spec = Q.pack_spec(*Q.build_spec(where, None))
+    count_spec = Q.pack_spec(*Q.build_spec(where, {"op": "count"}))
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    chunks, sheds = await _scan_plane_stream(
+        stub.scan_plane, {"collection": "c", "spec": spec})
+    t_scan = time.perf_counter() - t0
+    pages = dict(stub.eval_paths)
+    t0 = time.perf_counter()
+    counted, sheds2 = await _scan_plane_stream(
+        stub.scan_plane, {"collection": "c", "spec": count_spec})
+    t_count = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    got = [(codec.packb(k), codec.packb(d)) for c in chunks
+           for k, d in c["entries"]]
+    stats = stub.scan_plane.stats()
+    n_count = counted[-1].get("agg")
+    log(f"scan_plane: {len(chunks)} chunks ({stats['bytes_per_slice']} B a "
+        f"slice) in {t_scan:.2f}s, {len(got)} rows of {len(want)} "
+        f"({len(got) / t_scan:.0f} rows/s), eval paths of the spec pages "
+        f"{pages}, sheds retried {sheds + sheds2}; count aggregate "
+        f"{n_count} in {t_count:.2f}s; launches {counts}; filter "
+        f"{json.dumps(stats['filter'], sort_keys=True)}; paced "
+        f"{stats['paced']} ({stats['paced_s']}s)")
+    if got != want or n_count != len(want):
+        raise AssertionError(f"scan_plane: {len(got)} rows (want "
+                             f"{len(want)}), count {n_count}")
+    if (stats["filter"]["device_evals"] < 1
+            or set(pages) - {"device", "cached"}
+            or stats["filter"]["device_evals"] != pages.get("device")):
+        raise AssertionError(f"scan_plane: eval paths {pages}, device_evals "
+                             f"{stats['filter']['device_evals']}")
+    if stub.scan_plane.active_scans or stub.tasks - {
+            stub.governor._hb_task}:
+        raise AssertionError("scan_plane: work left behind")
+    if stub.governor._hb_task is not None:
+        stub.governor._hb_task.cancel()
+    return counts
+
+
+def check_scan_plane_launches(runs):
+    """The scan plane's filtered scan evaluates its two leaves on K8a and
+    K8b, and nothing else."""
+    got = runs["scan_plane"]
+    rest = {k: v for k, v in got.items() if k not in ("K8a", "K8b")}
+    if not got.get("K8a") or not got.get("K8b") or any(rest.values()):
+        raise AssertionError(f"scan_plane launches {got}")
+
+
+def _rwf_nowait(d) -> str:
+    """None where preadv2(RWF_NOWAIT) serves a cached page in ``d`` (the
+    C plane's table probes need it), else why not."""
+    if not hasattr(os, "RWF_NOWAIT"):
+        return "os.RWF_NOWAIT missing"
+    p = os.path.join(d, "nowait-probe")
+    with open(p, "wb") as f:
+        f.write(b"x" * 4096)
+    fd = os.open(p, os.O_RDONLY)
+    try:
+        os.preadv(fd, [bytearray(16)], 0, os.RWF_NOWAIT)
+        return None
+    except OSError as e:
+        return (f"preadv2(RWF_NOWAIT) refused on kernel "
+                f"{os.uname().release}: {e}")
+    finally:
+        os.close(fd)
+        os.unlink(p)
+
+
+async def _serving_dp(torch, np, n_ops, device):
+    """Returns (the tree, the oracle, its launches, writes/s, the
+    directory)."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.server.dataplane import create_dataplane
+    from dbeel_tpu_torch.storage import DEFAULT_TREE_CAPACITY, LSMTree
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+    from dbeel_tpu_torch.storage.entry import file_name
+    from dbeel_tpu_torch.storage.page_cache import (
+        PageCache, PartitionPageCache,
+    )
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    cfg = config.parse_args([])
+    capacity = cfg.memtable_capacity or DEFAULT_TREE_CAPACITY
+    # The arena phase's ops with each key as a client sends one: a
+    # 16-character string (the hex of its first 8 bytes).  A binary key
+    # whose encoding ends in NUL would make the scan stage decline the
+    # tree, and migration would page it entry by entry.
+    ops = [(k.hex()[:16], v) for k, v in
+           shard_ops(np, 0, n_ops, overwrites=0.01, deletes=0.005)]
+    t0 = time.perf_counter()
+    frames = [codec.packb(
+        {"type": "set", "collection": "c", "key": k, "value": v}
+        if v is not None else {"type": "delete", "collection": "c", "key": k}
+    ) for k, v in ops]
+    oracle = dict(ops)
+    log(f"serving_dp: {len(frames)} frames packed in "
+        f"{time.perf_counter() - t0:.1f}s")
+    d = os.path.join(WORK, "serving", "tree")
+    tree_kw = {}
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+        tree_kw["strategy"] = get_strategy("device")
+    # The arena phase's page cache: the interpreted reads of punted
+    # gets go through it, as a shard's do.
+    tree = LSMTree.open_or_create(
+        d, cache=PartitionPageCache("serving", PageCache(16384)),
+        capacity=capacity, memtable_kind=cfg.memtable_kind, device=device,
+        **tree_kw)
+    dp = create_dataplane()
+    if dp is None or tree.memtable_kind != "arena":
+        raise AssertionError(f"serving_dp: data plane {dp}, memtable "
+                             f"{tree.memtable_kind}")
+    dp.set_ownership(1)
+    dp.register_tree("c", tree)
+    if tree.write_state_listener is None:
+        raise AssertionError("serving_dp: the tree has no listener")
+    flushes, punts = [], 0
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        got = dp.try_handle(frame)
+        if got is None:
+            # The interpreted handler's write (db_server's set/delete).
+            punts += 1
+            key, value = ops[i]
+            if value is None:
+                await tree.delete(codec.packb(key))
+            else:
+                await tree.set(codec.packb(key), codec.packb(value))
+        elif got[2] is not None:
+            flushes.append(asyncio.ensure_future(got[2].flush()))
+            await asyncio.sleep(0)
+        elif i % 256 == 255:
+            await asyncio.sleep(0)
+    await asyncio.gather(*flushes)
+    await tree.flush()
+    await _settle()
+    t_write = time.perf_counter() - t0
+    stats = dp.stats()
+    tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+    log(f"serving_dp write: {n_ops} frames in {t_write:.2f}s "
+        f"({n_ops / t_write:.0f} writes/s through try_handle), "
+        f"{stats['fast_sets']} native sets, {punts} punts, "
+        f"{len(flushes)} flushes asked for, {len(tables)} tables of "
+        f"{capacity} entries")
+    if stats["fast_sets"] + punts != n_ops or punts * 10 > n_ops:
+        raise AssertionError(f"serving_dp: {stats['fast_sets']} native "
+                             f"sets and {punts} punts of {n_ops}")
+
+    # Run serving_dp: the major compaction on the card; a copy of the same
+    # tables merged by the cpu strategy must be SHA-256-equal.
+    twin_dir = os.path.join(WORK, "serving", "twin")
+    os.makedirs(twin_dir)
+    for f in os.listdir(d):
+        if not f.endswith(".memtable"):
+            shutil.copy(os.path.join(d, f), twin_dir)
+    out = max(tables) + 1
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    await tree.compact(tables, out, keep_tombstones=False)
+    counts = dict(_cuda.launches)
+    t_compact = time.perf_counter() - t0
+    twin = LSMTree.open_or_create(twin_dir, capacity=capacity,
+                                  memtable_kind="sorted",
+                                  strategy=get_strategy("cpu"))
+    await twin.compact(tables, out, keep_tombstones=False)
+    twin.close()
+    digests = [{ext: _table_digests(x).get(file_name(out, ext))
+                for ext in ("data", "index", "bloom", "sums")}
+               for x in (d, twin_dir)]
+    log(f"serving_dp compact: {len(tables)} tables in {t_compact:.2f}s on "
+        f"{tree.strategy.name}, launches {counts}; SHA-256 equal to the "
+        f"cpu merge of a copy: {digests[0] == digests[1]}")
+    if digests[0] != digests[1] or digests[0]["data"] is None:
+        raise AssertionError(f"serving_dp: compacted tables differ: {digests}")
+    shutil.rmtree(twin_dir)
+
+    # The compacted table reaches the C registry through the listener
+    # (the swap, then its warmed read index).
+    for _ in range(3000):
+        fp = dp._table_fps.get("c")
+        if fp and len(fp) == 1 and (fp[0][1] or fp[0][2]):
+            break
+        await asyncio.sleep(0.01)
+    else:
+        raise AssertionError(f"serving_dp: registry {dp._table_fps}")
+    nowait = _rwf_nowait(d)
+    live = sum(v is not None for v in oracle.values())
+    t0 = time.perf_counter()
+    native = native_deleted = bad = 0
+    for key, value in oracle.items():
+        got = dp.try_handle(codec.packb(
+            {"type": "get", "collection": "c", "key": key}))
+        if got is not None:
+            native += value is not None
+            native_deleted += value is None
+            resp = got[0]
+            ok = (resp[-1] == 1 and resp[4:-1] == codec.packb(value)
+                  if value is not None else resp[-1] == 0)
+        else:
+            found = await tree.get(codec.packb(key))
+            ok = found == (None if value is None else codec.packb(value))
+        bad += not ok
+    t_gets = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    absent = [rng.bytes(8).hex() for _ in range(SERVING_ABSENT)]
+    absent = [k for k in absent if k not in oracle]
+    t0 = time.perf_counter()
+    native_absent = 0
+    for key in absent:
+        got = dp.try_handle(codec.packb(
+            {"type": "get", "collection": "c", "key": key}))
+        if got is not None:
+            native_absent += 1
+            bad += got[0][-1] != 0
+        else:
+            bad += await tree.get(codec.packb(key)) is not None
+    t_absent = time.perf_counter() - t0
+    stats = dp.stats()
+    log(f"serving_dp gets: {len(oracle)} keys ({live} live) in "
+        f"{t_gets:.2f}s ({len(oracle) / t_gets:.0f} gets/s), {native} "
+        f"live keys served natively from the card's table, "
+        f"{native_deleted} deleted ones answered natively"
+        + ("" if nowait is None else f" ({nowait}: the C probe punts "
+           "every read, the interpreted path serves it)")
+        + f"; {len(absent)} absent keys in {t_absent:.3f}s "
+        f"({len(absent) / t_absent:.0f} gets/s), {native_absent} answered "
+        f"natively from the bloom and prefix index; mismatches {bad}; "
+        f"stats {json.dumps(stats, sort_keys=True)}")
+    if bad:
+        raise AssertionError(f"serving_dp: {bad} gets disagree")
+    if nowait is None and native + native_deleted != len(oracle):
+        raise AssertionError(f"serving_dp: {native + native_deleted} of "
+                             f"{len(oracle)} gets served natively")
+    if nowait is not None and native:
+        raise AssertionError(f"serving_dp: {native} native table reads "
+                             f"where {nowait}")
+    if native_absent * 10 < len(absent) * 9:
+        raise AssertionError(f"serving_dp: {native_absent} of {len(absent)} "
+                             "absent keys answered natively")
+    dp.unregister("c")
+    return tree, oracle, counts, n_ops / t_write
+
+
+async def _serving_migrate(np, src, oracle, device):
+    """One quarter of the ring out of ``src`` into a hash-memtable tree
+    on the card; returns the launch counts and keys/s."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.cluster.local_comm import LocalShardConnection
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.server import migration
+    from dbeel_tpu_torch.server.shard import MigrationAction, RangeAndAction
+    from dbeel_tpu_torch.storage import LSMTree
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+    from dbeel_tpu_torch.utils.murmur import hash_bytes
+
+    d = os.path.join(WORK, "serving", "migrate")
+    os.makedirs(d)
+    cfg = config.parse_args([]).replace(dir=d)
+    target = LSMTree.open_or_create(
+        os.path.join(d, "target"), capacity=MIGRATE_CAPACITY,
+        memtable_kind="hash", device=device,
+        strategy=get_strategy("device", device=device))
+
+    class Target(LocalShardConnection):
+        """The receiving shard's apply of each ShardEvent.set."""
+
+        async def send_message(self, source_id, message):
+            _ev, _set, _col, key, value, ts = message
+            await target.set_with_timestamp(bytes(key), bytes(value),
+                                            int(ts))
+
+    conn = Target(1)
+    stub = _StubShard(src, cfg)
+    stub.ring.append(_RingEntry("n1", "s1", 0x40000000, conn))
+    start, end = 0xC0000000, 0x00000000  # (start, end]: a wrapping quarter
+    journals = []
+    real_replace = os.replace
+
+    def spy(a, b):
+        if os.path.basename(str(b)).startswith("migration-"):
+            with open(a) as f:
+                journals.append(json.load(f))
+        return real_replace(a, b)
+
+    units0 = stub.scheduler.stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    os.replace = spy
+    try:
+        await migration.migrate_actions(
+            stub, "c", src,
+            [RangeAndAction(start, end, MigrationAction.SEND, conn)],
+            plan_epoch=1)
+    finally:
+        os.replace = real_replace
+    t_mig = time.perf_counter() - t0
+    await target.flush()
+    await _settle()
+    tables = [i for i, _ in target.sstable_indices_and_sizes()]
+    t1 = time.perf_counter()
+    await target.compact(tables, max(tables) + 1, keep_tombstones=False)
+    t_compact = time.perf_counter() - t1
+    counts = dict(_cuda.launches)
+    units = {k: round(v - units0[k], 6) if isinstance(v, float) else
+             v - units0[k] for k, v in stub.scheduler.stats().items()
+             if isinstance(v, (int, float))}
+    want = {}
+    for key, value in oracle.items():
+        enc = codec.packb(key)
+        if value is not None and migration._in_migration_range(
+                hash_bytes(enc), start, end):
+            want[enc] = (codec.packb(value), (await src.get_entry(enc))[1])
+    got = {}
+    sa = None
+    while True:
+        es, more = await target.scan_page(0, 0, sa, None, 65536, 16 << 20,
+                                          True)
+        for k, v, ts in es:
+            got[bytes(k)] = (bytes(v), int(ts))
+        if not more:
+            break
+        sa = es[-1][0]
+    last = journals[-1] if journals else None
+    log(f"serving_migrate: {stub.keys_migrated} keys "
+        f"({stub.bytes_migrated} value bytes) of the quarter ({start:#x}, "
+        f"{end:#x}] in {t_mig:.2f}s ({stub.keys_migrated / t_mig:.0f} "
+        f"keys/s) under bg_slice, scheduler {json.dumps(units, sort_keys=True)}"
+        f"; target: {len(tables)} tables, compaction {t_compact:.2f}s, "
+        f"launches {counts}; {len(journals)} journal writes, the last "
+        f"{json.dumps(last and last['arcs'])}; target equals the oracle: "
+        f"{got == want}")
+    target.close()
+    if got != want or not want:
+        raise AssertionError(f"serving_migrate: {len(got)} keys, want "
+                             f"{len(want)}")
+    if last is None or not all(a["done"] for a in last["arcs"]) or \
+            os.path.exists(os.path.join(d, "migration-0-c.json")):
+        raise AssertionError(f"serving_migrate: journal {last}")
+    return counts, stub.keys_migrated / t_mig
+
+
+async def _fake_replica(ack, received):
+    async def conn(reader, writer):
+        try:
+            while True:
+                hdr = await reader.readexactly(4)
+                body = await reader.readexactly(
+                    int.from_bytes(hdr, "little"))
+                received.append(len(body))
+                writer.write(len(ack).to_bytes(4, "little") + ack)
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+    return await asyncio.start_server(conn, "127.0.0.1", 0)
+
+
+async def _serving_fanout(n_ops):
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.cluster import messages as msgs
+    from dbeel_tpu_torch.cluster.native_fanout import create_quorum_fanout
+
+    cfg = config.parse_args([])
+
+    class Shard:
+        config = cfg
+        tasks = set()
+        hints = []
+
+        def spawn(self, coro):
+            t = asyncio.ensure_future(coro)
+            self.tasks.add(t)
+            return t
+
+        def _record_hint(self, name, request):
+            self.hints.append(name)
+
+    shard = Shard()
+    qf = create_quorum_fanout(shard)
+    if qf is None:
+        raise AssertionError("serving_fanout: no fan-out engine")
+    ack = msgs.pack_message(["response", msgs.ShardResponse.SET])
+    received = [[], []]
+    servers = [await _fake_replica(ack, r) for r in received]
+
+    class Conn:
+        def __init__(self, port):
+            self.address = f"127.0.0.1:{port}"
+
+    conns = [(f"node{i}", Conn(s.sockets[0].getsockname()[1]))
+             for i, s in enumerate(servers)]
+    frames = []
+    for i in range(n_ops):
+        req = msgs.pack_message(msgs.ShardRequest.set(
+            "c", b"key-%08d" % i, b"v" * 64, 1_000 + i))
+        frames.append(len(req).to_bytes(4, "little") + req)
+    first = qf.try_submit(frames[0], conns, 2, ack, "set", lambda: None)
+    for _ in range(500):
+        if all(qf._lib.dbeel_qf_stream_alive(qf._handle, p) for p in (0, 1)):
+            break
+        await asyncio.sleep(0.01)
+    results, fallbacks = [], 0
+    t0 = time.perf_counter()
+    for i in range(0, n_ops, SERVING_FANOUT_WINDOW):
+        futs = []
+        for f in frames[i: i + SERVING_FANOUT_WINDOW]:
+            fut = qf.try_submit(f, conns, 2, ack, "set", lambda: None)
+            if fut is None:
+                fallbacks += 1
+            else:
+                futs.append(fut)
+        results += await asyncio.wait_for(asyncio.gather(*futs), 30)
+    secs = time.perf_counter() - t0
+    stats = qf.stats()
+    qf.close()
+    for s in servers:
+        s.close()
+    for t in list(shard.tasks):
+        t.cancel()
+    ok = sum(r == [None, None] for r in results)
+    log(f"serving_fanout: {n_ops} quorum sets (2 acks of 2 loopback "
+        f"replicas, {SERVING_FANOUT_WINDOW} in flight) in {secs:.3f}s "
+        f"({n_ops / secs:.0f} ops/s), first submit before the streams "
+        f"{first}, fallbacks {fallbacks}, acks matched {ok}, hints "
+        f"{len(shard.hints)}, replicas received "
+        f"{[len(r) for r in received]} frames; the engine drives plain "
+        f"non-blocking sockets from the loop's selector (no io_uring); "
+        f"stats {stats}")
+    if (first is not None or fallbacks or ok != n_ops or shard.hints
+            or stats["fast_fanout_ops"] != n_ops):
+        raise AssertionError("serving_fanout: not every op resolved")
+    return n_ops / secs
+
+
+def phase_serving(torch, np, n_ops=ARENA_OPS, n_fanout=SERVING_FANOUT_OPS,
+                  device="cuda"):
+    """The data plane, migration and the quorum fan-out on the server's
+    defaults.  Returns the launch counts of its two runs."""
+
+    async def drive():
+        tree, oracle, dp_counts, dp_rate = await _serving_dp(
+            torch, np, n_ops, device)
+        try:
+            mig_counts, mig_rate = await _serving_migrate(
+                np, tree, oracle, device)
+        finally:
+            tree.close()
+        fan_rate = await _serving_fanout(n_fanout)
+        return ({"serving_dp": dp_counts, "serving_migrate": mig_counts},
+                dp_rate, mig_rate, fan_rate)
+
+    t0 = time.perf_counter()
+    runs, dp_rate, mig_rate, fan_rate = asyncio.run(drive())
+    shutil.rmtree(os.path.join(WORK, "serving"))
+    log(f"serving: {time.perf_counter() - t0:.1f}s (data plane "
+        f"{dp_rate:.0f} writes/s, migration {mig_rate:.0f} keys/s, fan-out "
+        f"{fan_rate:.0f} ops/s)")
+    return runs
+
+
+def check_serving_launches(runs):
+    """The data plane's tree compacts on K3 (K4 where prefixes tie); the
+    migration target's flushes sort on K5 and its compaction takes K3
+    (K4 on ties)."""
+    for run, allowed in (("serving_dp", ("K3", "K4")),
+                         ("serving_migrate", ("K3", "K4", "K5"))):
+        got = runs[run]
+        rest = {k: v for k, v in got.items() if k not in allowed}
+        if not got.get("K3") or any(rest.values()):
+            raise AssertionError(f"{run} launches {got}")
+    if not runs["serving_migrate"].get("K5"):
+        raise AssertionError(f"serving_migrate launches "
+                             f"{runs['serving_migrate']}")
 
 
 # ----------------------------------------------------------------------
 
 
 PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena",
-          "index", "planes")
+          "index", "planes", "serving")
 
 
 def main(argv=None) -> int:
@@ -3331,6 +4020,7 @@ def main(argv=None) -> int:
         if "scan" in only:
             scan_runs = phase_scan(torch, np, strategy=strategy)
             check_scan_launches(scan_runs)
+            check_scan_plane_launches(scan_runs)
             runs.update(scan_runs)
             from dbeel_tpu_torch.ops import query_kernels
 
@@ -3355,6 +4045,10 @@ def main(argv=None) -> int:
             runs.update(phase_planes(
                 torch, np, strategy, bench["dense"] if bench else None
             ))
+        if "serving" in only:
+            serving_runs = phase_serving(torch, np)
+            check_serving_launches(serving_runs)
+            runs.update(serving_runs)
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.

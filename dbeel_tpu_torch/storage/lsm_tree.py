@@ -269,6 +269,11 @@ class LSMTree:
         self.flush_start_event = LocalEvent()
         self.flush_done_event = LocalEvent()
         self.flow = flow_events.FlowEventNotifier()
+        # Serving-data-plane hook: called with this tree whenever the
+        # write state (active/flushing memtable, WAL, table list, a
+        # table's warmed read index) changes, so the native fast path
+        # re-registers fresh handles.
+        self.write_state_listener: Optional[Callable] = None
 
     # ------------------------------------------------------------------
     # Open / recovery (lsm_tree.rs:401-545)
@@ -411,6 +416,7 @@ class LSMTree:
                 now_nanos(),
                 self._active.max_ts,
             )
+        self._notify_write_state()
 
     def _wal_path(self, index: int) -> str:
         return os.path.join(
@@ -498,7 +504,7 @@ class LSMTree:
             # corrupt (or merely stale) pages.
             self.cache.invalidate_file((DATA_FILE_EXT, table.index))
             self.cache.invalidate_file((INDEX_FILE_EXT, table.index))
-        self._drop_scan_stage()
+        self._notify_write_state()
         retire = asyncio.ensure_future(
             self._retire_quarantined_files(old_list, table)
         )
@@ -854,7 +860,7 @@ class LSMTree:
                 )
                 self._wal = new_wal
                 self._index = next_index
-                self._drop_scan_stage()
+                self._notify_write_state()
                 self.flush_start_event.notify()
 
             flush_index, old_wal = self._pending_flush
@@ -886,14 +892,18 @@ class LSMTree:
                 counters=self.durability,
             )
             # Pre-warm the in-memory read index off-loop so the first
-            # point lookup doesn't pay the bulk read.
-            asyncio.get_event_loop().run_in_executor(None, table.warm)
+            # point lookup doesn't pay the bulk read; when it lands,
+            # re-notify so the native data plane picks up the built
+            # prefix arrays (the callback runs on the loop thread).
+            asyncio.get_event_loop().run_in_executor(
+                None, table.warm
+            ).add_done_callback(lambda _f: self._notify_write_state())
             self._sstables = SSTableList(
                 self._sstables.tables + [table]
             )
             self._flushing = None
             self._pending_flush = None
-            self._drop_scan_stage()
+            self._notify_write_state()
             old_wal.delete()  # disposal completes off-loop
             self._disposing_wal = old_wal
         finally:
@@ -1283,15 +1293,20 @@ class LSMTree:
             self.dir_path, output_index, self.cache,
             counters=self.durability,
         )
-        asyncio.get_event_loop().run_in_executor(None, output_table.warm)
+        asyncio.get_event_loop().run_in_executor(
+            None, output_table.warm
+        ).add_done_callback(lambda _f: self._notify_write_state())
         survivors.append(output_table)
         # SSTableList sorts by index: the even/odd scheme ranks the
         # output (max(inputs)+1) below any table flushed DURING this
         # compaction, so reversed() keeps probing newest data first.
         self._sstables = SSTableList(survivors)
         # A cached scan stage holds a reader ref on the old list: drop
-        # it now, or the drain below would wait for the next scan.
-        self._drop_scan_stage()
+        # it now, or the drain below would wait for the next scan.  The
+        # native data plane must swap to the new table list before the
+        # inputs are closed and unlinked below (its dup'd fds keep the
+        # old tables safe mid-probe).
+        self._notify_write_state()
 
         # Reader drain before deleting inputs (1141-1145).
         while old_list.readers > 0:
@@ -1388,6 +1403,17 @@ class LSMTree:
             len(self._active),
             self._flushing is not None,
         )
+
+    def _notify_write_state(self) -> None:
+        """A write-state change: drop the cached scan stage, then tell
+        the listener (the data plane); a failing listener is logged,
+        never raised into the flush or compaction that notified."""
+        self._drop_scan_stage()
+        if self.write_state_listener is not None:
+            try:
+                self.write_state_listener(self)
+            except Exception:
+                log.exception("write_state_listener failed")
 
     def _drop_scan_stage(self) -> None:
         """Every write-state change (flush swap, table-list swap,

@@ -16,12 +16,18 @@ binds what it calls:
   (``storage/wal.py``);
 * the io_uring page reader of cold point reads (``storage/uring.py``);
 * the k-way merge, ``NativeMergeStrategy`` below, with its chunked and
-  overlapped file IO and the page-CRC kernel of the inline sidecar.
+  overlapped file IO and the page-CRC kernel of the inline sidecar;
+* the serving data plane (``dbeel_dp_*``, ``server/dataplane.py``) and
+  the quorum fan-out engine (``dbeel_qf_*``, ``cluster/native_fanout.py``).
 
 The library must carry every one of these symbols (the current ABI); a
-library without them is not used.  The serving data plane
-(``dbeel_dp_*``) and the quorum fan-out (``dbeel_qf_*``) are bound by
-later slices of the port.
+library without them is not used.
+
+``DBEEL_NATIVE_SO`` selects another prebuilt library (the sanitizer
+workflow loads ``build/libdbeel_native_asan.so``, made with ``make
+SANITIZE=asan``).  An overridden path is loaded as it is — no staleness
+check, no rebuild, which would clobber an instrumented binary with a
+plain one — and any failure to load it raises, in every call.
 """
 
 from __future__ import annotations
@@ -57,7 +63,9 @@ log = logging.getLogger(__name__)
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "native"
 )
-LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libdbeel_native.so")
+DEFAULT_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libdbeel_native.so")
+LIB_PATH = os.environ.get("DBEEL_NATIVE_SO") or DEFAULT_LIB_PATH
+LIB_OVERRIDDEN = LIB_PATH != DEFAULT_LIB_PATH
 
 # Outputs of the native merge at or above this size are written by the
 # C O_DIRECT streamer; smaller ones through the page-mirroring writer,
@@ -83,6 +91,9 @@ _cpp = ctypes.POINTER(_cp)
 # and (out_data, out_size, out_index) of the merges.
 _MERGE_IN = [_cpp, _cpp, _u64p, _u32, _int]
 _MERGE_OUT = [_u8p, _u64p, _u8p]
+# (handle, frame, frame length, out buffer, capacity, out length) of the
+# data plane's three frame handlers.
+_DP_HANDLER = [_vp, _cp, _u32, _cp, _u32, _u32p]
 
 # Every symbol the port calls: (restype, argtypes).  argtypes None —
 # the caller passes fully typed ctypes arguments (ops/pipeline.py).
@@ -169,6 +180,61 @@ _PROTOTYPES = {
     "dbeel_crc32_pages": (None, [_u8p, _u64, _u32p]),
     "dbeel_odirect_fallbacks": (_u64, []),
     "dbeel_read_overlap_stats": (None, [_u64p, _u64p]),
+    # The serving data plane: a handle per shard, collections registered
+    # with their memtable, WAL and table descriptors; the handlers take
+    # (dp, frame, frame length, out, out capacity, out length).
+    "dbeel_dp_new": (_vp, []),
+    "dbeel_dp_free": (None, [_vp]),
+    "dbeel_dp_set_ownership": (None, [_vp, _i32, _u32, _u32]),
+    # (dp, name, name length, active, flushing, wal, capacity,
+    # client_plane — 0 = replica plane only)
+    "dbeel_dp_register": (_i32, [_vp, _cp, _u32, _vp, _vp, _vp, _u32, _i32]),
+    "dbeel_dp_unregister": (None, [_vp, _cp, _u32]),
+    "dbeel_dp_set_watermark": (None, [_vp, _cp, _u32, _i64]),
+    # (dp, name, name length, FastTable descriptor array, count)
+    "dbeel_dp_set_tables": (_i32, [_vp, _cp, _u32, _vp, _i32]),
+    "dbeel_dp_handle": (_i64, _DP_HANDLER),
+    "dbeel_dp_handle_shard": (_i64, _DP_HANDLER),
+    "dbeel_dp_handle_coord": (_i64, _DP_HANDLER),
+    "dbeel_dp_set_overload": (None, [_vp, _i32]),
+    "dbeel_dp_set_overload_resp": (None, [_vp, _cp, _u32, _cp, _u32]),
+    "dbeel_dp_set_verify": (None, [_vp, _i32]),
+    "dbeel_dp_set_multi": (None, [_vp, _i32]),
+    "dbeel_dp_set_class_levels": (None, [_vp, _i32, _i32, _i32]),
+    "dbeel_dp_sheds_by_class": (None, [_vp, _u64p]),
+    "dbeel_dp_admits_by_class": (None, [_vp, _u64p]),
+    "dbeel_dp_set_trace": (None, [_vp, _i32]),
+    "dbeel_dp_trace_snapshot": (_i32, [_vp, _u64p, _i32]),
+    **{
+        f"dbeel_dp_{counter}": (_u64, [_vp])
+        for counter in (
+            "fast_sets", "fast_gets", "fast_table_gets", "fast_replica_ops",
+            "fast_coord_writes", "fast_coord_gets", "fast_multi_sets",
+            "fast_multi_gets", "native_sheds", "native_deadline_drops",
+            "crc_failures",
+        )
+    },
+    # The quorum fan-out engine: one stream per peer id.
+    "dbeel_qf_new": (_vp, []),
+    "dbeel_qf_free": (None, [_vp]),
+    "dbeel_qf_set_stream": (_i32, [_vp, _i32, _i32]),
+    "dbeel_qf_stream_alive": (_i32, [_vp, _i32]),
+    "dbeel_qf_kill_stream": (None, [_vp, _i32]),
+    "dbeel_qf_close_stream": (None, [_vp, _i32]),
+    # (qf, frame, frame length, peer ids, n peers, expected ack, its
+    # length) -> op id, 0 when nothing was sent
+    "dbeel_qf_submit": (
+        _u64, [_vp, _cp, _u32, ctypes.POINTER(_i32), _u32, _cp, _u32]
+    ),
+    "dbeel_qf_wants_write": (_i32, [_vp, _i32]),
+    "dbeel_qf_on_writable": (_i32, [_vp, _i32]),
+    "dbeel_qf_on_readable": (_i32, [_vp, _i32]),
+    # (qf, op id, peer id, kind, payload buffer, capacity, length)
+    "dbeel_qf_next_event": (
+        _i32, [_vp, _u64p, ctypes.POINTER(_i32), ctypes.POINTER(_i32), _cp,
+               _u32, _u32p]
+    ),
+    "dbeel_qf_fanout_ops": (_u64, [_vp]),
 }
 _REQUIRED = tuple(_PROTOTYPES)
 
@@ -191,6 +257,9 @@ def _src_mtime() -> float:
 
 
 def _stale() -> bool:
+    """Missing or older than its sources; never for an override."""
+    if LIB_OVERRIDDEN:
+        return False
     return (
         not os.path.exists(LIB_PATH)
         or os.path.getmtime(LIB_PATH) < _src_mtime()
@@ -225,13 +294,27 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.argtypes = argtypes
 
 
+def _unusable(why: str) -> None:
+    """Log why the library is not used — or raise, for an override:
+    an explicit ``DBEEL_NATIVE_SO`` that silently degraded would run a
+    sanitized suite against no native code at all."""
+    if LIB_OVERRIDDEN:
+        raise RuntimeError(f"DBEEL_NATIVE_SO={LIB_PATH}: {why}")
+    log.warning("native library: %s", why)
+
+
 def load() -> Optional[ctypes.CDLL]:
     """The library, built first if missing or stale; None when it
-    cannot be built or lacks a symbol of ``_PROTOTYPES``."""
+    cannot be built or lacks a symbol of ``_PROTOTYPES``.  With
+    ``DBEEL_NATIVE_SO`` set it raises instead of returning None."""
     global _lib, _tried
     with _guard:
-        if _lib is not None or _tried:
+        if _lib is not None:
             return _lib
+        if _tried:
+            if LIB_OVERRIDDEN:
+                _unusable("failed to load earlier in this process")
+            return None
         _tried = True
         if _stale():
             try:
@@ -243,11 +326,11 @@ def load() -> Optional[ctypes.CDLL]:
         try:
             lib = ctypes.CDLL(LIB_PATH)
         except OSError as e:
-            log.warning("native lib load failed: %s", e)
+            _unusable(f"load failed: {e}")
             return None
         missing = [s for s in _REQUIRED if not hasattr(lib, s)]
         if missing:
-            log.warning("native library lacks %s", ", ".join(missing))
+            _unusable("lacks " + ", ".join(missing))
             return None
         _bind(lib)
         _lib = lib
@@ -256,10 +339,12 @@ def load() -> Optional[ctypes.CDLL]:
 
 def load_if_built() -> Optional[ctypes.CDLL]:
     """The library only if already built — never runs make (safe from
-    latency-sensitive contexts such as the first murmur hash)."""
+    latency-sensitive contexts such as the first murmur hash).  An
+    override goes straight to ``load()``, which never builds it and
+    raises when it does not load."""
     if _lib is not None:
         return _lib
-    if not os.path.exists(LIB_PATH):
+    if not LIB_OVERRIDDEN and not os.path.exists(LIB_PATH):
         return None
     return load()
 
