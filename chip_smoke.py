@@ -78,11 +78,12 @@ Phases (any failure exits non-zero):
                 filtered scan with a comparison leaf and a range leaf
                 through ScanPlane.handle("scan"), resumed chunk by chunk
                 (the default scan_bytes_per_slice) until the cursor is
-                nil, and a filtered count aggregate, over the same tree;
-                the SCAN pages come from a stub shard standing in for
-                MyShard (ROADMAP item 5(c)); rows equal the oracle, the
-                first spec page evaluates on the card (K8a and K8b) and
-                every later one reuses its mask.
+                nil, and a filtered count aggregate, over the same tree,
+                which a MyShard on the server's defaults holds as its
+                collection: its handle_shard_request answers the SCAN
+                pages; rows equal the oracle, the first spec page
+                evaluates on the card (K8a and K8b) and every later one
+                reuses its mask.
   7. mesh     — the distributed backend over 4 partitions placed
                 round-robin on min(4, cards) cards (all on cuda:0 with
                 one card): mesh_wide — BASELINE.json configs[3], one
@@ -148,14 +149,20 @@ Phases (any failure exits non-zero):
                 phase 3's unthrottled merge, each with phase 3's launches
                 (K1 x2, K2 x1); the busy/idle wall ratio is logged beside
                 1 + fg/bg.
- 11. serving  — the native serving planes on the server's defaults
-                (config.parse_args([])): serving_dp feeds the arena
-                phase's 393216 ops (16-character string keys, 64 B
-                values, seed 7) as set/delete frames through
-                DataPlane.try_handle (a punt takes the interpreted
-                write; each flush the flags ask for is spawned), compacts
-                the tree through get_strategy("auto") on the card
-                (SHA-256-equal to the cpu merge of a copy), then sends a
+ 11. serving  — one MyShard on the server's defaults
+                (config.parse_args with only --dir, device "cuda"), its
+                collection "c" made by create_collection: serving_dp
+                feeds the arena phase's 393216 ops (16-character string
+                keys, 64 B values, seed 7) as set/delete frames through
+                the shard's own DataPlane.try_handle (a punt takes the
+                interpreted write; each flush the flags ask for is
+                spawned) while the shard's compaction loop
+                (tasks.run_compaction_loop) merges every flush's size
+                tier on the card (serving_loop: K3/K4 launches, fewer
+                tables than flushes and background units, asserted),
+                then cancels the loop, compacts the tree through
+                get_strategy("auto") on the card (SHA-256-equal to the
+                cpu merge of a copy), then sends a
                 get frame for every key and 10000 absent ones: the
                 compacted table reaches the C registry through
                 write_state_listener; where the host serves
@@ -163,10 +170,12 @@ Phases (any failure exits non-zero):
                 elsewhere the present keys punt to the Python read
                 (asserted either way) and the absent ones are answered
                 natively from the bloom and prefix index; all equal the
-                oracle.  serving_migrate streams a quarter of the ring
-                out of that tree with migrate_actions under the share
-                scheduler's bg_slice into a hash-memtable tree on the
-                card (65536 entries: its flush sorts on K5), which is
+                oracle; the shard's get_stats names the strategy on
+                cuda and carries the coalescer's stats() (one line).
+                serving_migrate streams a quarter of the ring
+                out of the shard's collection with migrate_actions under
+                its share scheduler's bg_slice into a hash-memtable tree
+                on the card (65536 entries: its flush sorts on K5), which is
                 then compacted on the card; it holds exactly the
                 oracle's keys of the range with their timestamps, and
                 the journal's last write says done.  serving_fanout runs
@@ -179,15 +188,16 @@ on a host with several cards, where get_strategy("auto") is the
 distributed backend (asserted: "device" on one card, "distributed" on
 several).
 
-The main path is twenty-one runs — the bench merge, the dense merge,
+The main path is twenty-two runs — the bench merge, the dense merge,
 the two trees' major compactions, the shards' writes with their
 flushes, the shards' compaction, the scan collection's compaction,
 its filtered scans and its scan-plane scan, the mesh phase's
 mesh_wide compaction, its K7 cross-check, mesh_hot, mesh_skew and
 mesh_big, the arena tree's major compaction, the indexed collection's
 tiered merges and its major compaction, the planes phase's idle and
-busy throttled merges, the data plane tree's compaction and the
-migration (its target's flushes and compaction).  The kernel launch
+busy throttled merges, the serving shard's compaction loop beside
+its writes, its major compaction and the migration (its target's
+flushes and compaction).  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -1789,10 +1799,12 @@ async def _write_tree(tree, ops):
             await tree.set_with_timestamp(key, value, 1_000 + i)
 
 
-async def _settle():
-    """Await every task the trees spawned (capacity-triggered flushes)."""
+async def _settle(skip=()):
+    """Await every task the trees spawned (capacity-triggered flushes),
+    all but those in ``skip`` (a shard's own, which run until it
+    closes)."""
     others = [t for t in asyncio.all_tasks()
-              if t is not asyncio.current_task()]
+              if t is not asyncio.current_task() and t not in skip]
     await asyncio.gather(*others)
 
 
@@ -2274,9 +2286,9 @@ async def _drive_scan(torch, np, n, device, strategy):
         log(f"profile: first cmp evaluation wall {wall_s * 1e3:.1f}ms "
             f"(traced), device busy {busy_ms:.3f}ms = "
             f"{busy_ms / (wall_s * 1e3):.6f} of wall; top: {top}")
-    # Run scan_plane: the coordinator side of a filtered scan (phase 11's
-    # stub shard answers its SCAN pages).
-    plane_counts = await _scan_plane_run(tree, live, n)
+    # Run scan_plane: the coordinator side of a filtered scan (a MyShard
+    # answers its SCAN pages).
+    plane_counts = await _scan_plane_run(tree, live, n, device)
     tree.close()
     return {"scan_load": load_counts, "scan_filter": counts,
             "scan_plane": plane_counts}
@@ -3321,114 +3333,28 @@ SERVING_FANOUT_WINDOW = 512
 MIGRATE_CAPACITY = 1 << 16
 
 
-class _RingEntry:
-    """One shard of the ring, as MyShard's ``Shard`` entries."""
+def _shard(d, device, cache_pages=8):
+    """One MyShard as the server builds it, on the server's defaults
+    (config.parse_args with only --dir), merging on ``device``."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.cluster.local_comm import LocalShardConnection
+    from dbeel_tpu_torch.server.shard import MyShard, Shard
+    from dbeel_tpu_torch.storage.page_cache import PageCache
 
-    def __init__(self, node_name, name, h, connection=None):
-        self.node_name = node_name
-        self.name = name
-        self.hash = h
-        self.connection = connection
-
-
-class _StubShard:
-    """Stands in for MyShard, which the port does not have yet (ROADMAP
-    Queue 1 item 5(c)): what the scan and migration planes read of it,
-    and the SCAN peer handler of MyShard.handle_shard_request — the same
-    clamps, ``scan_filter_page``/``scan_page``, ``eval_path`` counted,
-    ``ShardResponse.scan(...)``.  One shard owning the whole ring."""
-
-    def __init__(self, tree, cfg, name="s0", rf=1):
-        from dbeel_tpu_torch.server import governor, metrics, qos, scan
-        from dbeel_tpu_torch.server.scheduler import ShareScheduler
-
-        self.id = 0
-        self.shard_name = name
-        self.config = cfg
-        self.collections = {"c": _Collection(tree, rf)}
-        self.ring = [_RingEntry("n0", name, 0x80000000)]
-        self.dead_nodes = set()
-        self.membership_epoch = 1
-        self.migrations_cancelled = 0
-        self.keys_migrated = 0
-        self.bytes_migrated = 0
-        self.dataplane = None
-        self.db_connections = []
-        self.tasks = set()
-        self.eval_paths = {}
-        self.metrics = metrics.ShardMetrics()
-        self.scheduler = ShareScheduler(cfg.foreground_tasks_shares,
-                                        cfg.background_tasks_shares)
-        self.governor = governor.LoadGovernor(self, cfg)
-        self.qos = qos.QosPlane(self, cfg)
-        self.scan_plane = scan.ScanPlane(self, cfg)
-
-    @property
-    def shards(self):
-        return self.ring
-
-    def spawn(self, coro):
-        t = asyncio.ensure_future(coro)
-        self.tasks.add(t)
-        t.add_done_callback(self.tasks.discard)
-        return t
-
-    def get_collection(self, name):
-        from dbeel_tpu_torch.errors import CollectionNotFound
-
-        if name not in self.collections:
-            raise CollectionNotFound(name)
-        return self.collections[name]
-
-    def all_arcs(self, rf):
-        s = (self.ring[0].hash + 1) & 0xFFFFFFFF
-        return [(s, s, [self.ring[0]])]
-
-    async def handle_shard_request(self, request):
-        from dbeel_tpu_torch import query as Q
-        from dbeel_tpu_torch.cluster.messages import (
-            ShardRequest, ShardResponse,
-        )
-        from dbeel_tpu_torch.server import qos
-
-        if request[1] != ShardRequest.SCAN:
-            raise AssertionError(f"stub shard: {request[1]!r} frame")
-        tree = self.collections[request[2]].tree
-        start_after = bytes(request[5]) if request[5] is not None else None
-        prefix = bytes(request[6]) if request[6] else None
-        limit = max(1, min(int(request[7]), 65536))
-        max_bytes = max(4096, min(int(request[8]), 16 << 20))
-        spec = request[10] if len(request) > 10 else None
-        self.qos.note_peer(qos.class_of(request[11]) if len(request) > 11
-                           else qos.QOS_BATCH)
-        if spec is None:
-            entries, more = await tree.scan_page(
-                int(request[3]), int(request[4]), start_after, prefix,
-                limit, max_bytes, bool(request[9]))
-            return ShardResponse.scan(entries, more)
-        where, agg, mode = Q.unpack_peer_spec(spec)
-        entries, more, cover, rows, nbytes, partial, path = (
-            await tree.scan_filter_page(
-                int(request[3]), int(request[4]), start_after, prefix,
-                limit, max_bytes, bool(request[9]), where, agg, mode))
-        self.eval_paths[path] = self.eval_paths.get(path, 0) + 1
-        plane = self.scan_plane
-        if path == "device":
-            plane.device_evals += 1
-        elif path == "indexed":
-            plane.indexed_evals += 1
-        elif path in ("numpy", "golden"):
-            plane.fallback_evals += 1
-        if partial is not None:
-            plane.agg_partials += 1
-        return ShardResponse.scan(entries, more, cover, rows, nbytes,
-                                  partial)
+    cfg = config.parse_args(["--dir", d])
+    conn = LocalShardConnection(0)
+    ring = [Shard(cfg.name, f"{cfg.name}-0", conn)]
+    return MyShard(cfg, 0, ring, PageCache(cache_pages), conn,
+                   device=device)
 
 
-class _Collection:
-    def __init__(self, tree, rf):
-        self.tree = tree
-        self.replication_factor = rf
+async def _close_shard(shard):
+    """Cancel and await every task the shard owns, then close it."""
+    tasks = list(shard._background_tasks)
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+    shard.close()
 
 
 async def _scan_plane_stream(plane, request):
@@ -3455,39 +3381,55 @@ async def _scan_plane_stream(plane, request):
         request, rtype = {"cursor": chunk["cursor"]}, "scan_next"
 
 
-async def _scan_plane_run(tree, live, n):
+async def _scan_plane_run(tree, live, n, device):
     """The coordinator side of a filtered scan over phase 6's tree: a
     comparison leaf and a range leaf through ScanPlane.handle("scan")
     with the default scan_bytes_per_slice, chunk by chunk, then a
-    filtered count aggregate; the SCAN pages come from the stub shard.
-    Returns the launch counts."""
-    from dbeel_tpu_torch import config
+    filtered count aggregate; a MyShard on the server's defaults holds
+    the tree as its collection "c" and its handle_shard_request
+    answers the SCAN pages.  Returns the launch counts."""
     from dbeel_tpu_torch import query as Q
     from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.server.shard import Collection
     from dbeel_tpu_torch.utils import msgpack_codec as codec
 
-    cfg = config.parse_args([])
-    stub = _StubShard(tree, cfg)
+    shard = _shard(os.path.join(WORK, "scan", "shard"), device)
+    # Phase 6's tree becomes the shard's collection as it stands:
+    # reopening it through create_collection would rebuild its scan
+    # stage, seconds of host time at this size.
+    shard.collections["c"] = Collection(tree, 1)
+    eval_paths = {}
+    page = tree.scan_filter_page
+
+    async def counted_page(*args):
+        out = await page(*args)
+        eval_paths[out[6]] = eval_paths.get(out[6], 0) + 1
+        return out
+
+    tree.scan_filter_page = counted_page
     lo, hi, cut = n // 5, n // 5 + n // 20, n // 5 + n // 40
     where = ["and", ["cmp", "v", "<", cut], ["range", "v", lo, hi]]
     want = [(k, val) for k, (val, _ts, v) in sorted(live.items())
             if lo <= v < cut]
     spec = Q.pack_spec(*Q.build_spec(where, None))
     count_spec = Q.pack_spec(*Q.build_spec(where, {"op": "count"}))
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    chunks, sheds = await _scan_plane_stream(
-        stub.scan_plane, {"collection": "c", "spec": spec})
-    t_scan = time.perf_counter() - t0
-    pages = dict(stub.eval_paths)
-    t0 = time.perf_counter()
-    counted, sheds2 = await _scan_plane_stream(
-        stub.scan_plane, {"collection": "c", "spec": count_spec})
-    t_count = time.perf_counter() - t0
-    counts = dict(_cuda.launches)
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        chunks, sheds = await _scan_plane_stream(
+            shard.scan_plane, {"collection": "c", "spec": spec})
+        t_scan = time.perf_counter() - t0
+        pages = dict(eval_paths)
+        t0 = time.perf_counter()
+        counted, sheds2 = await _scan_plane_stream(
+            shard.scan_plane, {"collection": "c", "spec": count_spec})
+        t_count = time.perf_counter() - t0
+        counts = dict(_cuda.launches)
+    finally:
+        del tree.scan_filter_page
     got = [(codec.packb(k), codec.packb(d)) for c in chunks
            for k, d in c["entries"]]
-    stats = stub.scan_plane.stats()
+    stats = shard.scan_plane.stats()
     n_count = counted[-1].get("agg")
     log(f"scan_plane: {len(chunks)} chunks ({stats['bytes_per_slice']} B a "
         f"slice) in {t_scan:.2f}s, {len(got)} rows of {len(want)} "
@@ -3504,11 +3446,12 @@ async def _scan_plane_run(tree, live, n):
             or stats["filter"]["device_evals"] != pages.get("device")):
         raise AssertionError(f"scan_plane: eval paths {pages}, device_evals "
                              f"{stats['filter']['device_evals']}")
-    if stub.scan_plane.active_scans or stub.tasks - {
-            stub.governor._hb_task}:
+    if shard.scan_plane.active_scans or shard._background_tasks - {
+            shard.governor._hb_task}:
         raise AssertionError("scan_plane: work left behind")
-    if stub.governor._hb_task is not None:
-        stub.governor._hb_task.cancel()
+    # The tree stays phase 6's to close.
+    shard.collections.clear()
+    await _close_shard(shard)
     return counts
 
 
@@ -3541,22 +3484,30 @@ def _rwf_nowait(d) -> str:
         os.unlink(p)
 
 
+async def _loop_settled(busy, tree, quiet_s=0.2):
+    """Wait until the compaction loop has merged after the last flush:
+    no compact_tree in flight and the tables unchanged for
+    ``quiet_s``."""
+    last, since = None, time.perf_counter()
+    while True:
+        now = tree.sstable_indices_and_sizes()
+        if busy[0] or now != last:
+            last, since = now, time.perf_counter()
+        elif time.perf_counter() - since >= quiet_s:
+            return
+        await asyncio.sleep(0.01)
+
+
 async def _serving_dp(torch, np, n_ops, device):
-    """Returns (the tree, the oracle, its launches, writes/s, the
-    directory)."""
-    from dbeel_tpu_torch import config
+    """Returns (the shard, the oracle, the launches of the compaction
+    loop's run and of the major compaction, writes/s)."""
     from dbeel_tpu_torch.ops import _cuda
-    from dbeel_tpu_torch.server.dataplane import create_dataplane
-    from dbeel_tpu_torch.storage import DEFAULT_TREE_CAPACITY, LSMTree
+    from dbeel_tpu_torch.server import coalescer, tasks
+    from dbeel_tpu_torch.storage import LSMTree
     from dbeel_tpu_torch.storage.compaction import get_strategy
     from dbeel_tpu_torch.storage.entry import file_name
-    from dbeel_tpu_torch.storage.page_cache import (
-        PageCache, PartitionPageCache,
-    )
     from dbeel_tpu_torch.utils import msgpack_codec as codec
 
-    cfg = config.parse_args([])
-    capacity = cfg.memtable_capacity or DEFAULT_TREE_CAPACITY
     # The arena phase's ops with each key as a client sends one: a
     # 16-character string (the hex of its first 8 bytes).  A binary key
     # whose encoding ends in NUL would make the scan stage decline the
@@ -3571,55 +3522,87 @@ async def _serving_dp(torch, np, n_ops, device):
     oracle = dict(ops)
     log(f"serving_dp: {len(frames)} frames packed in "
         f"{time.perf_counter() - t0:.1f}s")
-    d = os.path.join(WORK, "serving", "tree")
-    tree_kw = {}
-    if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
-        tree_kw["strategy"] = get_strategy("device")
-    # The arena phase's page cache: the interpreted reads of punted
-    # gets go through it, as a shard's do.
-    tree = LSMTree.open_or_create(
-        d, cache=PartitionPageCache("serving", PageCache(16384)),
-        capacity=capacity, memtable_kind=cfg.memtable_kind, device=device,
-        **tree_kw)
-    dp = create_dataplane()
+    # One shard on the server's defaults, with the arena phase's page
+    # cache: its own data plane (armed by MyShard.__init__ with the
+    # native overload frames) takes the frames, and its compaction loop
+    # merges on the card while they are written.
+    shard = _shard(os.path.join(WORK, "serving", "shard"), device,
+                   cache_pages=16384)
+    await shard.create_collection("c", 1)
+    tree = shard.collections["c"].tree
+    d = tree.dir_path
+    capacity = tree.capacity
+    dp = shard.dataplane
     if dp is None or tree.memtable_kind != "arena":
         raise AssertionError(f"serving_dp: data plane {dp}, memtable "
                              f"{tree.memtable_kind}")
-    dp.set_ownership(1)
-    dp.register_tree("c", tree)
     if tree.write_state_listener is None:
         raise AssertionError("serving_dp: the tree has no listener")
+    busy = [0]
+    real_compact_tree = tasks.compact_tree
+
+    async def watched(*args):
+        busy[0] += 1
+        try:
+            await real_compact_tree(*args)
+        finally:
+            busy[0] -= 1
+
+    tasks.compact_tree = watched
     flushes, punts = [], 0
+    units0 = shard.scheduler.stats()["background_units"]
+    # Run serving_loop: the frames' writes with the shard's compaction
+    # loop beside them, until the loop has merged after the last flush.
+    _cuda.reset_launches()
     t0 = time.perf_counter()
-    for i, frame in enumerate(frames):
-        got = dp.try_handle(frame)
-        if got is None:
-            # The interpreted handler's write (db_server's set/delete).
-            punts += 1
-            key, value = ops[i]
-            if value is None:
-                await tree.delete(codec.packb(key))
-            else:
-                await tree.set(codec.packb(key), codec.packb(value))
-        elif got[2] is not None:
-            flushes.append(asyncio.ensure_future(got[2].flush()))
-            await asyncio.sleep(0)
-        elif i % 256 == 255:
-            await asyncio.sleep(0)
-    await asyncio.gather(*flushes)
-    await tree.flush()
-    await _settle()
-    t_write = time.perf_counter() - t0
+    loop = shard.spawn(tasks.run_compaction_loop(shard))
+    try:
+        for i, frame in enumerate(frames):
+            got = dp.try_handle(frame)
+            if got is None:
+                # The interpreted handler's write (db_server's set/delete).
+                punts += 1
+                key, value = ops[i]
+                if value is None:
+                    await tree.delete(codec.packb(key))
+                else:
+                    await tree.set(codec.packb(key), codec.packb(value))
+            elif got[2] is not None:
+                flushes.append(asyncio.ensure_future(got[2].flush()))
+                await asyncio.sleep(0)
+            elif i % 256 == 255:
+                await asyncio.sleep(0)
+        await asyncio.gather(*flushes)
+        await tree.flush()
+        t_write = time.perf_counter() - t0
+        await _loop_settled(busy, tree)
+        t_loop = time.perf_counter() - t0
+        loop_counts = dict(_cuda.launches)
+    finally:
+        tasks.compact_tree = real_compact_tree
+        loop.cancel()
+        await asyncio.gather(loop, return_exceptions=True)
     stats = dp.stats()
+    units = shard.scheduler.stats()["background_units"] - units0
     tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+    n_flushed = tree._index // 2
     log(f"serving_dp write: {n_ops} frames in {t_write:.2f}s "
-        f"({n_ops / t_write:.0f} writes/s through try_handle), "
-        f"{stats['fast_sets']} native sets, {punts} punts, "
-        f"{len(flushes)} flushes asked for, {len(tables)} tables of "
-        f"{capacity} entries")
+        f"({n_ops / t_write:.0f} writes/s through try_handle, the "
+        f"compaction loop beside them), {stats['fast_sets']} native sets, "
+        f"{punts} punts, {len(flushes)} flushes asked for, {n_flushed} "
+        f"tables of {capacity} entries flushed; the loop settled "
+        f"{t_loop - t_write:.2f}s after the last flush: {units} background "
+        f"units, {len(tables)} tables left, launches {loop_counts}")
     if stats["fast_sets"] + punts != n_ops or punts * 10 > n_ops:
         raise AssertionError(f"serving_dp: {stats['fast_sets']} native "
                              f"sets and {punts} punts of {n_ops}")
+    # The loop swallows a failed merge (it logs it, as dbeel_tpu's does):
+    # its merges must show here, on the card.
+    if (not (loop_counts.get("K3", 0) + loop_counts.get("K4", 0))
+            or len(tables) >= n_flushed or units < 1):
+        raise AssertionError(f"serving_loop: launches {loop_counts}, "
+                             f"{len(tables)} tables of {n_flushed} "
+                             f"flushed, {units} background units")
 
     # Run serving_dp: the major compaction on the card; a copy of the same
     # tables merged by the cpu strategy must be SHA-256-equal.
@@ -3634,9 +3617,12 @@ async def _serving_dp(torch, np, n_ops, device):
     await tree.compact(tables, out, keep_tombstones=False)
     counts = dict(_cuda.launches)
     t_compact = time.perf_counter() - t0
+    # The twin keeps the shard's tombstone GC grace (the server's
+    # default: hint_ttl, 3 h), so both merges keep every tombstone.
     twin = LSMTree.open_or_create(twin_dir, capacity=capacity,
                                   memtable_kind="sorted",
-                                  strategy=get_strategy("cpu"))
+                                  strategy=get_strategy("cpu"),
+                                  gc_grace_s=tree.gc_grace_s)
     await twin.compact(tables, out, keep_tombstones=False)
     twin.close()
     digests = [{ext: _table_digests(x).get(file_name(out, ext))
@@ -3712,26 +3698,38 @@ async def _serving_dp(torch, np, n_ops, device):
     if native_absent * 10 < len(absent) * 9:
         raise AssertionError(f"serving_dp: {native_absent} of {len(absent)} "
                              "absent keys answered natively")
+    shard_stats = shard.get_stats()
+    log("serving_dp get_stats: "
+        + json.dumps(shard_stats, sort_keys=True, default=str))
+    strategy = shard_stats["collections"]["c"]["strategy"]
+    # On the card: "device on cuda", and the coalescer of cuda.
+    want = f"{tree.strategy.name} on {torch.device(device).type}"
+    if (not strategy.startswith(want)
+            or shard_stats["device_coalescer"] != coalescer.stats(device)):
+        raise AssertionError(f"serving_dp: get_stats names {strategy!r}, "
+                             f"coalescer {shard_stats['device_coalescer']}")
     dp.unregister("c")
-    return tree, oracle, counts, n_ops / t_write
+    return shard, oracle, loop_counts, counts, n_ops / t_write
 
 
-async def _serving_migrate(np, src, oracle, device):
-    """One quarter of the ring out of ``src`` into a hash-memtable tree
-    on the card; returns the launch counts and keys/s."""
-    from dbeel_tpu_torch import config
+async def _serving_migrate(np, shard, oracle, device):
+    """One quarter of the ring out of the shard's collection into a
+    hash-memtable tree on the card; returns the launch counts and
+    keys/s."""
     from dbeel_tpu_torch.cluster.local_comm import LocalShardConnection
     from dbeel_tpu_torch.ops import _cuda
     from dbeel_tpu_torch.server import migration
-    from dbeel_tpu_torch.server.shard import MigrationAction, RangeAndAction
+    from dbeel_tpu_torch.server.shard import (
+        MigrationAction, RangeAndAction, Shard,
+    )
     from dbeel_tpu_torch.storage import LSMTree
     from dbeel_tpu_torch.storage.compaction import get_strategy
     from dbeel_tpu_torch.utils import msgpack_codec as codec
     from dbeel_tpu_torch.utils.murmur import hash_bytes
 
+    src = shard.collections["c"].tree
     d = os.path.join(WORK, "serving", "migrate")
     os.makedirs(d)
-    cfg = config.parse_args([]).replace(dir=d)
     target = LSMTree.open_or_create(
         os.path.join(d, "target"), capacity=MIGRATE_CAPACITY,
         memtable_kind="hash", device=device,
@@ -3746,8 +3744,8 @@ async def _serving_migrate(np, src, oracle, device):
                                             int(ts))
 
     conn = Target(1)
-    stub = _StubShard(src, cfg)
-    stub.ring.append(_RingEntry("n1", "s1", 0x40000000, conn))
+    shard.shards.append(Shard("n1", "n1-0", conn, hash=0x40000000))
+    shard.sort_consistent_hash_ring()
     start, end = 0xC0000000, 0x00000000  # (start, end]: a wrapping quarter
     journals = []
     real_replace = os.replace
@@ -3758,27 +3756,27 @@ async def _serving_migrate(np, src, oracle, device):
                 journals.append(json.load(f))
         return real_replace(a, b)
 
-    units0 = stub.scheduler.stats()
+    units0 = shard.scheduler.stats()
     _cuda.reset_launches()
     t0 = time.perf_counter()
     os.replace = spy
     try:
         await migration.migrate_actions(
-            stub, "c", src,
+            shard, "c", src,
             [RangeAndAction(start, end, MigrationAction.SEND, conn)],
-            plan_epoch=1)
+            plan_epoch=shard.membership_epoch)
     finally:
         os.replace = real_replace
     t_mig = time.perf_counter() - t0
     await target.flush()
-    await _settle()
+    await _settle(skip=shard._background_tasks)
     tables = [i for i, _ in target.sstable_indices_and_sizes()]
     t1 = time.perf_counter()
     await target.compact(tables, max(tables) + 1, keep_tombstones=False)
     t_compact = time.perf_counter() - t1
     counts = dict(_cuda.launches)
     units = {k: round(v - units0[k], 6) if isinstance(v, float) else
-             v - units0[k] for k, v in stub.scheduler.stats().items()
+             v - units0[k] for k, v in shard.scheduler.stats().items()
              if isinstance(v, (int, float))}
     want = {}
     for key, value in oracle.items():
@@ -3797,10 +3795,11 @@ async def _serving_migrate(np, src, oracle, device):
             break
         sa = es[-1][0]
     last = journals[-1] if journals else None
-    log(f"serving_migrate: {stub.keys_migrated} keys "
-        f"({stub.bytes_migrated} value bytes) of the quarter ({start:#x}, "
-        f"{end:#x}] in {t_mig:.2f}s ({stub.keys_migrated / t_mig:.0f} "
-        f"keys/s) under bg_slice, scheduler {json.dumps(units, sort_keys=True)}"
+    log(f"serving_migrate: {shard.keys_migrated} keys "
+        f"({shard.bytes_migrated} value bytes) of the quarter ({start:#x}, "
+        f"{end:#x}] out of the shard's collection in {t_mig:.2f}s "
+        f"({shard.keys_migrated / t_mig:.0f} keys/s) under bg_slice, "
+        f"scheduler {json.dumps(units, sort_keys=True)}"
         f"; target: {len(tables)} tables, compaction {t_compact:.2f}s, "
         f"launches {counts}; {len(journals)} journal writes, the last "
         f"{json.dumps(last and last['arcs'])}; target equals the oracle: "
@@ -3810,9 +3809,10 @@ async def _serving_migrate(np, src, oracle, device):
         raise AssertionError(f"serving_migrate: {len(got)} keys, want "
                              f"{len(want)}")
     if last is None or not all(a["done"] for a in last["arcs"]) or \
-            os.path.exists(os.path.join(d, "migration-0-c.json")):
+            os.path.exists(os.path.join(shard.config.dir,
+                                        "migration-0-c.json")):
         raise AssertionError(f"serving_migrate: journal {last}")
-    return counts, stub.keys_migrated / t_mig
+    return counts, shard.keys_migrated / t_mig
 
 
 async def _fake_replica(ack, received):
@@ -3916,16 +3916,16 @@ def phase_serving(torch, np, n_ops=ARENA_OPS, n_fanout=SERVING_FANOUT_OPS,
     defaults.  Returns the launch counts of its two runs."""
 
     async def drive():
-        tree, oracle, dp_counts, dp_rate = await _serving_dp(
+        shard, oracle, loop_counts, dp_counts, dp_rate = await _serving_dp(
             torch, np, n_ops, device)
         try:
             mig_counts, mig_rate = await _serving_migrate(
-                np, tree, oracle, device)
+                np, shard, oracle, device)
         finally:
-            tree.close()
+            await _close_shard(shard)
         fan_rate = await _serving_fanout(n_fanout)
-        return ({"serving_dp": dp_counts, "serving_migrate": mig_counts},
-                dp_rate, mig_rate, fan_rate)
+        return ({"serving_loop": loop_counts, "serving_dp": dp_counts,
+                 "serving_migrate": mig_counts}, dp_rate, mig_rate, fan_rate)
 
     t0 = time.perf_counter()
     runs, dp_rate, mig_rate, fan_rate = asyncio.run(drive())
@@ -3937,9 +3937,14 @@ def phase_serving(torch, np, n_ops=ARENA_OPS, n_fanout=SERVING_FANOUT_OPS,
 
 
 def check_serving_launches(runs):
-    """The data plane's tree compacts on K3 (K4 where prefixes tie); the
-    migration target's flushes sort on K5 and its compaction takes K3
-    (K4 on ties)."""
+    """The shard's compaction loop merges on K3 or K4 (where prefixes
+    tie); the data plane's tree compacts on K3 (K4 where prefixes tie);
+    the migration target's flushes sort on K5 and its compaction takes
+    K3 (K4 on ties)."""
+    got = runs["serving_loop"]
+    rest = {k: v for k, v in got.items() if k not in ("K3", "K4")}
+    if not (got.get("K3", 0) + got.get("K4", 0)) or any(rest.values()):
+        raise AssertionError(f"serving_loop launches {got}")
     for run, allowed in (("serving_dp", ("K3", "K4")),
                          ("serving_migrate", ("K3", "K4", "K5"))):
         got = runs[run]

@@ -124,6 +124,8 @@ class CompactionStats:
             self.index_bytes_written += int(nbytes)
 
     def stats(self) -> dict:
+        from . import native as native_mod
+
         with self._lock:
             amp = (
                 round(
@@ -139,7 +141,7 @@ class CompactionStats:
                 if self.bytes_written > 0
                 else None
             )
-            return {
+            block = {
                 "merge_passes": self.merge_passes,
                 "flush_passes": self.flush_passes,
                 "bytes_read": self.bytes_read,
@@ -152,6 +154,12 @@ class CompactionStats:
                 "index_bytes_written": self.index_bytes_written,
                 "index_maintenance_amplification": idx_amp,
             }
+        # The overlapped merge input pass: io_uring passes and serial
+        # fallbacks, counted inside native/.
+        overlap = native_mod.read_overlap_stats()
+        block["overlapped_read_passes"] = overlap[0]
+        block["serial_read_passes"] = overlap[1]
+        return block
 
 
 # One per process — every shard's trees fold into it, like the

@@ -42,6 +42,7 @@ import functools
 import logging
 import os
 import re
+import shutil
 from typing import AsyncIterator, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -467,6 +468,49 @@ class LSMTree:
             except Exception:
                 log.exception("on_disk_error callback failed")
 
+    async def rearm_precheck(self) -> None:
+        """Admin ``rearm`` pre-checks (operator replaced the disk):
+        prove this store's filesystem is writable again — free space
+        back above the flush floor, plus a write+fsync round trip
+        through the same fault seam the WAL append path uses —
+        WITHOUT clearing read-only (the shard layer does, once every
+        collection's tree passes).  Raises ShardDegraded while the
+        disk is still bad.  The probe uses a scratch file, not the
+        live WAL: a post-EIO WAL fd may be stale regardless, and the
+        flush the shard spawns right after re-arming rotates to a
+        fresh WAL anyway (two-WAL protocol) — if THAT still fails,
+        the on_error hook re-degrades immediately."""
+        probe = os.path.join(self.dir_path, ".rearm-probe")
+        if file_io.free_disk_space(probe) < MIN_FREE_BYTES:
+            raise ShardDegraded(
+                f"rearm {self.dir_path}: still below the "
+                f"free-space floor"
+            )
+
+        def _probe_write() -> None:
+            file_io.check_write_fault(probe)
+            fd = os.open(
+                probe, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644
+            )
+            try:
+                os.write(fd, b"\x00" * 4096)
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+                try:
+                    os.unlink(probe)
+                except OSError:
+                    pass
+
+        try:
+            await asyncio.get_event_loop().run_in_executor(
+                None, _probe_write
+            )
+        except OSError as e:
+            raise ShardDegraded(
+                f"rearm {self.dir_path}: WAL-append probe failed: {e}"
+            ) from e
+
     @property
     def reads_suspect(self) -> bool:
         """True while a quarantine awaits repair: a local miss may be
@@ -560,6 +604,48 @@ class LSMTree:
 
         await asyncio.get_event_loop().run_in_executor(None, _move)
 
+    def finish_repair(self, covered: int, recovered: bool = True) -> None:
+        """A replica repair pull completed, covering ``covered``
+        quarantines observed when it started: retire the quarantined
+        files for good and clear the suspect-miss state.
+        ``recovered=False`` (no replica existed to pull from — the
+        quarantined data is lost) clears the state without counting a
+        completed repair in the stats."""
+        self._quarantine_pending = max(
+            0, self._quarantine_pending - max(0, covered)
+        )
+        if self._quarantine_pending == 0:
+            self._suspect_max_index = -1
+        if recovered:
+            self.durability["repairs_completed"] += 1
+        qdir = os.path.join(self.dir_path, QUARANTINE_DIR)
+
+        def _rm():
+            try:
+                for name in os.listdir(qdir):
+                    os.unlink(os.path.join(qdir, name))
+                os.rmdir(qdir)
+            except OSError:
+                pass
+
+        # A fast repair can beat the reader-drained file move
+        # (_retire_quarantined_files): deleting first would leave the
+        # late-moved triplet leaking in quarantine/ forever — wait for
+        # every in-flight retire before removing the dir.
+        pending = [t for t in self._retire_tasks if not t.done()]
+
+        async def _rm_after_retires():
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+            await asyncio.get_event_loop().run_in_executor(None, _rm)
+
+        try:
+            asyncio.get_running_loop()
+            asyncio.ensure_future(_rm_after_retires())
+        except RuntimeError:
+            _rm()
+        self.flow.notify(flow_events.FlowEvent.REPAIR_DONE)
+
     def close(self) -> None:
         if self._wal is not None:
             self._wal.close()
@@ -576,6 +662,20 @@ class LSMTree:
     # ------------------------------------------------------------------
     # Reads (lsm_tree.rs:674-723)
     # ------------------------------------------------------------------
+
+    def newest_memtable_ts(self, key: bytes) -> Optional[int]:
+        """Newest timestamp for ``key`` across the active + flushing
+        memtables, or None — a synchronous probe for callers that must
+        re-check freshness with no awaits before writing."""
+        newest = None
+        hit = self._active.get(key)
+        if hit is not None:
+            newest = hit[1]
+        if self._flushing is not None:
+            hit = self._flushing.get(key)
+            if hit is not None and (newest is None or hit[1] > newest):
+                newest = hit[1]
+        return newest
 
     async def get_entry(
         self, key: bytes, suspect_guard: bool = False
@@ -782,6 +882,63 @@ class LSMTree:
         ):
             self._spawn_flush()
         return True
+
+    async def set_batch_with_timestamp(
+        self,
+        entries: Sequence[Tuple[bytes, bytes, int]],
+        stale_abort: bool = False,
+    ) -> List[Tuple[bytes, bytes, int]]:
+        """Insert a batch: memtable inserts under one capacity check
+        per chunk (Memtable.set_batch), then ONE WAL append_batch per
+        chunk — so a durable batch pays one fdatasync wait, not N
+        (group commit).  A capacity refusal mid-batch flush-waits and
+        continues with the remainder, like the single-set path.
+
+        With ``stale_abort``, entries whose timestamp is no newer
+        than the flush watermark AT INSERT TIME are skipped and
+        returned (the caller applies them read-guarded) — the same
+        race-closing contract as set_with_timestamp(stale_abort=True);
+        the watermark check and the memtable insert have no awaits
+        between them."""
+        if self.read_only:
+            raise ShardDegraded(
+                f"{self.dir_path}: read-only (disk failure)"
+            )
+        rejected: List[Tuple[bytes, bytes, int]] = []
+        pending = list(entries)
+        while pending:
+            if stale_abort:
+                wm = self.max_flushed_ts
+                fresh = []
+                for e in pending:
+                    (rejected if e[2] <= wm else fresh).append(e)
+                pending = fresh
+                if not pending:
+                    break
+            applied = self._active.set_batch(pending)
+            if applied == 0:
+                waiter = self.flush_start_event.listen()
+                self._spawn_flush()
+                await waiter
+                continue
+            chunk, pending = pending[:applied], pending[applied:]
+            assert self._wal is not None
+            try:
+                await self._wal.append_batch(chunk)
+            except OSError as e:
+                raise ShardDegraded(
+                    f"WAL batch append failed: {e}"
+                ) from e
+            self._appends_since_swap += applied
+            if self.on_commit is not None:
+                for k, v, ts in chunk:
+                    self.on_commit(k, v, ts)
+            if (
+                self._active.is_full()
+                or self._appends_since_swap >= self.capacity
+            ):
+                self._spawn_flush()
+        return rejected
 
     async def delete(self, key: bytes) -> None:
         await self.set_with_timestamp(key, TOMBSTONE, now_nanos())
@@ -2140,3 +2297,20 @@ class LSMTree:
             return None
         m = _FILE_RE.match(os.path.basename(path))
         return int(m.group(1)) if m else None
+
+    async def purge(self) -> None:
+        """Delete the tree from disk (drop collection, shards.rs:369-381).
+
+        Every table's cached pages are invalidated BEFORE the files
+        go: page-cache keys are (collection-name-hash, (ext, index),
+        address), all of which a re-created same-name collection
+        recycles from 0 — without the invalidation its reads would
+        serve the DROPPED collection's pages."""
+        self.close()
+        if self.cache is not None:
+            for t in self._sstables.tables:
+                self.cache.invalidate_file((DATA_FILE_EXT, t.index))
+                self.cache.invalidate_file((INDEX_FILE_EXT, t.index))
+        # Audited sync I/O: purge runs on the operator-rate DROP path
+        # after close() — nothing else serves this tree anymore.
+        shutil.rmtree(self.dir_path, ignore_errors=True)  # lint: allow(async-blocking)

@@ -1,13 +1,11 @@
 """The planes that read trees — migration, the scan plane's coordinator
 and the watch plane — of dbeel_tpu_torch against dbeel_tpu.
 
-The peer handlers that answer SCAN and WATCH_FEED frames live in the
-shard, which the port does not have yet (ROADMAP Queue 1 item 5(c)):
-``StubShard`` below stands in for it, doing what those handlers do —
-``scan_filter_page``/``scan_page`` under the same clamps, ``eval_path``
-counted, ``ShardResponse.scan(...)`` and the watch plane's
-``feed_page`` answered.  Each package gets its own stub built from its
-own modules and its own trees, written with the same seeded
+Each package runs its own ``MyShard``s (tests/torch_shards.py), one per
+node, reaching each other over the peer plane: the SCAN and WATCH_FEED
+pages come from ``MyShard.handle_shard_request`` behind the remote
+shard server, and migration reads the shard's collection.  Both
+packages' trees are written with the same seeded
 ``set_with_timestamp`` calls.  Every comparison is stated at its
 assert: chunk payloads byte-equal between packages and equal to a dict
 oracle, ShardEvent messages equal in packed bytes, journals equal as
@@ -23,8 +21,6 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from conftest import run
-
 from dbeel_tpu import config as jconfig
 from dbeel_tpu import errors as jerrors
 from dbeel_tpu import query as jquery
@@ -38,8 +34,6 @@ from dbeel_tpu.server import scan as jscan
 from dbeel_tpu.server import scheduler as jsched
 from dbeel_tpu.server import shard as jshard
 from dbeel_tpu.server import watch as jwatch
-from dbeel_tpu.storage import LSMTree as JTree
-from dbeel_tpu.storage.compaction import get_strategy as jget
 from dbeel_tpu_torch import config as tconfig
 from dbeel_tpu_torch import errors as terrors
 from dbeel_tpu_torch import query as tquery
@@ -53,24 +47,26 @@ from dbeel_tpu_torch.server import scan as tscan
 from dbeel_tpu_torch.server import scheduler as tsched
 from dbeel_tpu_torch.server import shard as tshard
 from dbeel_tpu_torch.server import watch as twatch
-from dbeel_tpu_torch.storage import LSMTree as TTree
-from dbeel_tpu_torch.storage.compaction import get_strategy as tget
 from dbeel_tpu_torch.utils import msgpack_codec as codec
 from dbeel_tpu_torch.utils.murmur import hash_bytes as thash
+
+from torch_shards import (  # noqa: F401
+    link,
+    make_shard,
+    no_leftovers,
+    run,
+    shutdown,
+)
 
 PKGS = {
     "ref": SimpleNamespace(
         config=jconfig, errors=jerrors, query=jquery, local=jlocal,
         msgs=jmsgs, governor=jgov, metrics=jmetrics, mig=jmig, qos=jqos,
-        scan=jscan, sched=jsched, shard=jshard, watch=jwatch,
-        tree=lambda d, **kw: JTree.open_or_create(
-            d, strategy=jget("heap"), **kw)),
+        scan=jscan, sched=jsched, shard=jshard, watch=jwatch),
     "port": SimpleNamespace(
         config=tconfig, errors=terrors, query=tquery, local=tlocal,
         msgs=tmsgs, governor=tgov, metrics=tmetrics, mig=tmig, qos=tqos,
-        scan=tscan, sched=tsched, shard=tshard, watch=twatch,
-        tree=lambda d, **kw: TTree.open_or_create(
-            d, strategy=tget("heap"), device="cpu", **kw)),
+        scan=tscan, sched=tsched, shard=tshard, watch=twatch),
 }
 
 
@@ -102,218 +98,29 @@ def clocked(monkeypatch):
 
 
 # ---------------------------------------------------------------------
-# The stub shard (standing in for MyShard, ROADMAP item 5(c))
+# The shards: each package's MyShard, one per node, over the peer plane
 # ---------------------------------------------------------------------
 
 
-class RingEntry:
-    def __init__(self, node_name, name, h, connection=None):
-        self.node_name = node_name
-        self.name = name
-        self.hash = h
-        self.connection = connection
-
-
-class PeerConn:
-    """A remote-shard connection to another stub: ``send_request``
-    runs that stub's peer handler (the wire is not the point here)."""
-
-    def __init__(self, target):
-        self.target = target
-
-    async def send_request(self, req):
-        return await self.target.handle_shard_request(req)
-
-
-class StubShard:
-    """What the scan, watch and migration planes read of MyShard, and
-    the SCAN / WATCH_FEED peer handlers of ``MyShard.
-    handle_shard_request`` (the same clamps and eval_path counting)."""
-
-    def __init__(self, m, name, node_name, tree, rf, cfg, sid=0):
-        self.m = m
-        self.id = sid
-        self.shard_name = name
-        self.node_name = node_name
-        self.config = cfg
-        self.collections = {"c": SimpleNamespace(
-            tree=tree, replication_factor=rf)}
-        self.ring = []
-        self.dead_nodes = set()
-        self.membership_epoch = 1
-        self._migration_tasks = set()
-        self.fence_refusals = 0
-        self.migrations_cancelled = 0
-        self.migrations_resumed = 0
-        self.keys_migrated = 0
-        self.bytes_migrated = 0
-        self.dataplane = None
-        self.db_connections = []
-        self.metrics = m.metrics.ShardMetrics()
-        self.scheduler = m.sched.ShareScheduler()
-        self.governor = m.governor.LoadGovernor(self, cfg)
-        # No loop-lag heartbeat: a test host's wall-clock stalls (first
-        # imports, executor builds) would move the level between the
-        # two packages' runs; every other signal is deterministic.
-        self.governor._hb_task = SimpleNamespace(done=lambda: False)
-        self.qos = m.qos.QosPlane(self, cfg)
-        self.scan_plane = m.scan.ScanPlane(self, cfg)
-        self.watch_plane = m.watch.WatchPlane(self, cfg)
-        self.flow = SimpleNamespace(notify=lambda *_a: None)
-        self.tasks = set()
-        tree.on_commit = (
-            lambda k, v, ts: self.watch_plane.publish("c", k, v, ts))
-
-    @property
-    def shards(self):
-        return self.ring
-
-    def spawn(self, coro):
-        t = asyncio.ensure_future(coro)
-        self.tasks.add(t)
-        t.add_done_callback(self.tasks.discard)
-        return t
-
-    def _migration_task_done(self, task):
-        self._migration_tasks.discard(task)
-
-    def _refresh_dataplane_ownership(self):
-        pass
-
-    def get_collection(self, name):
-        col = self.collections.get(name)
-        if col is None:
-            raise self.m.errors.CollectionNotFound(name)
-        return col
-
-    def _in_ae_range(self, h, start, end):
-        return start == end or self.m.mig._between(h, start, end)
-
-    def all_arcs(self, rf):
-        """MyShard.all_arcs: every ring arc with its rf-distinct-node
-        replica walk, +1-shifted half-open bounds, equal-set arcs
-        merged."""
-        ring = sorted(self.ring, key=lambda s: s.hash)
-        n = len(ring)
-        if n == 1:
-            s = (ring[0].hash + 1) & 0xFFFFFFFF
-            return [(s, s, [ring[0]])]
-        arcs = []
-        for i in range(n):
-            nodes, selected = set(), []
-            for off in range(n):
-                s = ring[(i + off) % n]
-                if s.node_name in nodes:
-                    continue
-                nodes.add(s.node_name)
-                selected.append(s)
-                if len(nodes) >= rf:
-                    break
-            arcs.append([(ring[i - 1].hash + 1) & 0xFFFFFFFF,
-                         (ring[i].hash + 1) & 0xFFFFFFFF, selected])
-        merged = []
-        for arc in arcs:
-            if (merged and merged[-1][1] == arc[0]
-                    and {s.name for s in merged[-1][2]}
-                    == {s.name for s in arc[2]}):
-                merged[-1][1] = arc[1]
-            else:
-                merged.append(arc)
-        if (len(merged) > 1 and merged[-1][1] == merged[0][0]
-                and {s.name for s in merged[-1][2]}
-                == {s.name for s in merged[0][2]}):
-            merged[0][0] = merged[-1][0]
-            merged.pop()
-        return [(s, e, p) for s, e, p in merged]
-
-    async def handle_shard_request(self, request):
-        R, Resp = self.m.msgs.ShardRequest, self.m.msgs.ShardResponse
-        kind = request[1]
-        if kind == R.SCAN:
-            col = self.collections.get(request[2])
-            if col is None:
-                return Resp.scan([], False)
-            start_after = (bytes(request[5]) if request[5] is not None
-                           else None)
-            prefix = bytes(request[6]) if request[6] else None
-            limit = max(1, min(int(request[7]), 65536))
-            max_bytes = max(4096, min(int(request[8]), 16 << 20))
-            spec = request[10] if len(request) > 10 else None
-            self.qos.note_peer(self.m.qos.class_of(request[11])
-                               if len(request) > 11
-                               else self.m.qos.QOS_BATCH)
-            if spec is not None:
-                where, agg, mode = self.m.query.unpack_peer_spec(spec)
-                (entries, more, cover, rows, sbytes, partial,
-                 eval_path) = await col.tree.scan_filter_page(
-                    int(request[3]), int(request[4]), start_after, prefix,
-                    limit, max_bytes, bool(request[9]), where, agg, mode)
-                plane = self.scan_plane
-                if eval_path == "device":
-                    plane.device_evals += 1
-                elif eval_path == "indexed":
-                    plane.indexed_evals += 1
-                elif eval_path in ("numpy", "golden"):
-                    plane.fallback_evals += 1
-                if partial is not None:
-                    plane.agg_partials += 1
-                return Resp.scan(entries, more, cover, rows, sbytes,
-                                 partial)
-            entries, more = await col.tree.scan_page(
-                int(request[3]), int(request[4]), start_after, prefix,
-                limit, max_bytes, bool(request[9]))
-            return Resp.scan(entries, more)
-        if kind == R.WATCH_FEED:
-            self.watch_plane.suspend_native(request[2])
-            ranges = ([[int(r[0]), int(r[1])] for r in request[5]]
-                      if request[5] else None)
-            limit = max(1, min(int(request[6]), 65536))
-            max_bytes = max(4096, min(int(request[7]), 16 << 20))
-            spec = request[8] if len(request) > 8 else None
-            events, boot, tail, status = self.watch_plane.feed_page(
-                request[2], int(request[3]), int(request[4]), ranges,
-                limit, max_bytes, bytes(spec) if spec is not None else None)
-            return Resp.watch_feed(events, boot, tail, status)
-        raise self.m.errors.DbeelError(f"unknown shard request {kind!r}")
-
-
-def _config(m, **kw):
-    return m.config.parse_args([]).replace(**kw)
-
-
 async def _cluster(pkg, d, rf, writes, **cfg_kw):
-    """One coordinator stub over ``rf`` replica stubs (distinct nodes,
-    fixed ring hashes); ``writes[i]`` lists replica i's (key, value,
-    ts) writes, value b"" a delete.  Returns (coordinator, stubs).  Run
-    on the loop that then drives the planes: the governor's lag
-    heartbeat belongs to one loop."""
-    m = PKGS[pkg]
-    cfg = _config(m, **cfg_kw)
-    hashes = [0x40000000, 0x90000000, 0xE0000000][:rf]
-    stubs = []
-    for i in range(rf):
-        tree = m.tree(os.path.join(d, pkg, "r%d" % i), capacity=4096)
-        stubs.append(StubShard(m, "s%d" % i, "n%d" % i, tree, rf, cfg,
-                               sid=i))
-    ring = [RingEntry("n%d" % i, "s%d" % i, hashes[i],
-                      PeerConn(stubs[i])) for i in range(rf)]
-    for s in stubs:
-        s.ring = ring
-    for s, w in zip(stubs, writes):
+    """One coordinator shard and ``rf - 1`` more replicas, each a
+    MyShard of its own node (n0, n1, ...) with collection "c" at
+    ``rf``, reaching each other over the peer plane; ``writes[i]``
+    lists replica i's (key, value, ts) writes, value b"" a delete.
+    Returns (coordinator, shards, servers).  Run on the loop that then
+    drives the planes."""
+    shards = [make_shard(pkg, os.path.join(d, pkg, "r%d" % i), "n%d" % i,
+                         **cfg_kw) for i in range(rf)]
+    servers = await link(shards)
+    for s, w in zip(shards, writes):
+        await s.create_collection("c", rf)
         tree = s.collections["c"].tree
         for key, value, ts in w:
             if value == b"":
                 await tree.delete_with_timestamp(key, ts)
             else:
                 await tree.set_with_timestamp(key, value, ts)
-    return stubs[0], stubs
-
-
-def _close(stubs):
-    """Close every tree (an unclosed WAL closes itself from ``__del__``,
-    which can run inside the executor's submit and deadlock it)."""
-    for s in stubs:
-        s.collections["c"].tree.close()
+    return shards[0], shards, servers
 
 
 def _docs(seed, n):
@@ -373,11 +180,12 @@ def _scan_both(tmp_path, rf, request, seed=1, n=700, **cfg_kw):
     for pkg in ("ref", "port"):
 
         async def main():
-            coord, stubs = await _cluster(pkg, str(tmp_path), rf, writes,
-                                          **cfg_kw)
+            coord, shards, servers = await _cluster(
+                pkg, str(tmp_path), rf, writes, **cfg_kw)
             chunks = await _stream(coord.scan_plane, dict(request))
-            _close(stubs)
-            return chunks, coord.scan_plane.stats()
+            stats = coord.scan_plane.stats()
+            await shutdown(*shards, servers=servers)
+            return chunks, stats
 
         out[pkg] = run(main(), timeout=60)
     assert out["port"][0] == out["ref"][0]  # byte-equal chunks
@@ -462,18 +270,18 @@ def journals(monkeypatch):
 
 def _migrate(pkg, d, arcs, epoch_after=None, fail_after=None):
     m = PKGS[pkg]
-    cfg = _config(m, dir=d)
     writes = _docs(4, 900)
-    tree = m.tree(os.path.join(d, "tree"), capacity=4096)
-    shard = StubShard(m, "s0", "n0", tree, 1, cfg)
 
     async def main():
+        shard = make_shard(pkg, d)
+        await shard.create_collection("c", 1)
+        tree = shard.collections["c"].tree
         for key, value, ts in writes:
             await tree.set_with_timestamp(key, value, ts)
         await tree.flush()
         target = _local_target(m, shard, epoch_after, fail_after)
-        shard.ring = [RingEntry("n0", "s0", 1), RingEntry("n1", "s1", 2,
-                                                          target)]
+        shard.shards.append(m.shard.Shard("n1", "n1-0", target))
+        shard.sort_consistent_hash_ring()
         ranges = [m.shard.RangeAndAction(s, e, act, target)
                   for s, e, act in arcs]
         err = None
@@ -483,7 +291,7 @@ def _migrate(pkg, d, arcs, epoch_after=None, fail_after=None):
         except RuntimeError as e:
             err = str(e)
         msgs = _drain(target)
-        tree.close()
+        await shutdown(shard)
         return ([m.msgs.pack_message(x) for x in msgs], err,
                 shard.keys_migrated, shard.bytes_migrated,
                 shard.migrations_cancelled, sorted(os.listdir(d)))
@@ -563,21 +371,21 @@ def test_resume_from_a_reference_journal(tmp_path):
         d = str(tmp_path / ("resume-" + pkg))
         os.makedirs(d)
         shutil.copy(journal, d)
-        cfg = _config(m, dir=d)
-        tree = m.tree(os.path.join(d, "tree"), capacity=4096)
-        shard = StubShard(m, "s0", "n0", tree, 1, cfg)
 
         async def main():
+            shard = make_shard(pkg, d)
+            await shard.create_collection("c", 1)
+            tree = shard.collections["c"].tree
             for key, value, ts in _docs(4, 900):
                 await tree.set_with_timestamp(key, value, ts)
             target = m.local.LocalShardConnection(7)
-            shard.ring = [RingEntry("n0", "s0", 1),
-                          RingEntry("n1", state["arcs"][0]["target"], 2,
-                                    target)]
+            shard.shards.append(m.shard.Shard(
+                "n1", state["arcs"][0]["target"], target))
+            shard.sort_consistent_hash_ring()
             await m.mig.resume_migrations(shard)
             await asyncio.gather(*list(shard._migration_tasks))
             out = [m.msgs.pack_message(x) for x in _drain(target)]
-            tree.close()
+            await shutdown(shard)
             return (out, shard.migrations_resumed, shard.keys_migrated,
                     sorted(os.listdir(d)))
 
@@ -649,7 +457,7 @@ def test_cursor_minted_by_one_package_decodes_in_the_other(mint, read):
 
 
 # ---------------------------------------------------------------------
-# Scan plane: the coordinator over RF 1 and RF 3 stubs
+# Scan plane: the coordinator over RF 1 and RF 3 shards
 # ---------------------------------------------------------------------
 
 
@@ -724,7 +532,8 @@ def test_scan_sheds_equal(tmp_path, clocked, how):
         m = PKGS[pkg]
 
         async def main():
-            coord, stubs = await _cluster(pkg, str(tmp_path), 1, writes)
+            coord, shards, servers = await _cluster(pkg, str(tmp_path), 1,
+                                                    writes)
             plane = coord.scan_plane
             if how == "hard":
                 coord.governor.force_level(m.governor.LEVEL_HARD)
@@ -732,8 +541,9 @@ def test_scan_sheds_equal(tmp_path, clocked, how):
                 plane.active_scans = coord.config.scan_max_concurrent
             with pytest.raises(m.errors.Overloaded) as e:
                 await plane.handle({"collection": "c"}, "scan")
-            _close(stubs)
-            return str(e.value), plane.stats(), coord.qos.stats()
+            out = str(e.value), plane.stats(), coord.qos.stats()
+            await shutdown(*shards, servers=servers)
+            return out
 
         got[pkg] = run(main())
     assert got["port"] == got["ref"]
@@ -774,7 +584,7 @@ def test_watch_cursor_codec_and_spec_where_agree():
 
 
 async def _watch_chunks(pkg, d, rf, writes, writes_after, cfg_kw):
-    coord, stubs = await _cluster(pkg, d, rf, writes, **cfg_kw)
+    coord, shards, servers = await _cluster(pkg, d, rf, writes, **cfg_kw)
     plane = coord.watch_plane
     tree = coord.collections["c"].tree
     first = await plane.handle({"collection": "c", "sub_id": "sub1"},
@@ -790,8 +600,9 @@ async def _watch_chunks(pkg, d, rf, writes, writes_after, cfg_kw):
         p = await plane.handle({"cursor": cur}, "watch_next")
         payloads.append(p)
         cur = codec.unpackb(p)["cursor"]
-    _close(stubs)
-    return payloads, plane.stats()
+    stats = plane.stats()
+    await shutdown(*shards, servers=servers)
+    return payloads, stats
 
 
 def _watch_both(tmp_path, rf, writes_after, **cfg_kw):
@@ -840,7 +651,8 @@ def test_watch_stale_epoch_refuses_as_not_owned(tmp_path, clocked):
         m = PKGS[pkg]
 
         async def main():
-            coord, stubs = await _cluster(pkg, str(tmp_path), 1, writes)
+            coord, shards, servers = await _cluster(pkg, str(tmp_path), 1,
+                                                    writes)
             plane = coord.watch_plane
             first = await plane.handle({"collection": "c",
                                         "sub_id": "s"}, "watch")
@@ -850,9 +662,11 @@ def test_watch_stale_epoch_refuses_as_not_owned(tmp_path, clocked):
                 await plane.handle(
                     {"cursor": codec.unpackb(first)["cursor"]},
                     "watch_next")
-            _close(stubs)
-            return (str(e.value), coord.fence_refusals,
-                    plane.stats()["fence_refusals"])
+            out = (str(e.value), coord.fence_refusals,
+                   plane.stats()["fence_refusals"])
+            coord._migration_tasks.clear()
+            await shutdown(*shards, servers=servers)
+            return out
 
         got[pkg] = run(main())
     assert got["port"] == got["ref"]
@@ -864,7 +678,7 @@ def test_watch_cursor_behind_the_ring_catches_up_flagged(tmp_path, clocked,
                                                          rf):
     """A 16-event ring overrun by 80 writes: the cursor falls behind,
     the plane catches up from durable state (the SCAN pages of the
-    stub) with every replayed event FLAG_DUP — byte-equal chunks, and
+    shards) with every replayed event FLAG_DUP — byte-equal chunks, and
     every key's newest state delivered."""
     writes = _fresh_writes(80, seed=10)
     payloads, stats = _watch_both(tmp_path, rf, writes, watch_ring=16)
