@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 (``--only kernels,mesh`` runs phase 1 and the named phases alone —
 e.g. ``--only mesh`` on a host with four cards, where phase 7's
 partitions take one card each, ``--only planes`` for phase 10,
-which then merges its keyspace unthrottled itself, or ``--only
-serving`` for phase 11.)
+which then merges its keyspace unthrottled itself, ``--only
+serving`` for phase 11 or ``--only node`` for phase 12; ``--seed``
+seeds phase 12's keys and documents.)
 
 Phases (any failure exits non-zero):
 
@@ -182,13 +183,39 @@ Phases (any failure exits non-zero):
                 10000 quorum sets (2 acks) through QuorumFanout to two
                 loopback fake replicas; every op resolves with both
                 acks.  Writes/s, gets/s, keys/s and ops/s are logged.
+ 12. node     — one node serving over TCP: the port's run_node, in this
+                process, on config.parse_args with --dir, --shards 4 and
+                its ports (the arena memtable of 8192 entries, auto on
+                the card).  The load is a child process
+                (chip_smoke.py --node-load) that imports the stdlib and
+                the port's msgpack codec only and speaks the wire over 64
+                keepalive connections, each frame routed to the shard
+                the ring gives its key.  node_dp: create_collection
+                "c", 131072 sets of 16-character keys from --seed with
+                64-byte documents (about 4 flushes a shard), a get of each
+                (equal to the oracle), 10000 absent keys (KeyNotFound),
+                1024 deletes, each read back as KeyNotFound, a filtered
+                scan and its count (scan_plane's two leaves, K8a and
+                K8b) equal to the oracle, then get_stats of each shard
+                (one line; "device on cuda" and the coalescer's
+                stats(), asserted) while the four compaction loops
+                merge on the card (K3, K4 on ties; fewer tables than
+                flushes, asserted); the card's busy share over the leg
+                is traced.  node_major: each shard's tables, copied after
+                the node stops, major-compacted on the card, SHA-256
+                equal to the cpu merge.  node_interp: a fresh node with
+                DBEEL_NO_DATAPLANE=1 takes 32768 sets and 32768 gets,
+                each through the interpreted path and its pure-Python
+                codec.  Each node stops within 10 s and its ports then
+                refuse connections.  Writes/s and gets/s of both legs,
+                the punts and the merges by shard are logged.
 
 Phases 3-6, 9 and 10 run on get_strategy("device"), so their routes hold
 on a host with several cards, where get_strategy("auto") is the
 distributed backend (asserted: "device" on one card, "distributed" on
 several).
 
-The main path is twenty-two runs — the bench merge, the dense merge,
+The main path is twenty-five runs — the bench merge, the dense merge,
 the two trees' major compactions, the shards' writes with their
 flushes, the shards' compaction, the scan collection's compaction,
 its filtered scans and its scan-plane scan, the mesh phase's
@@ -197,7 +224,9 @@ mesh_big, the arena tree's major compaction, the indexed collection's
 tiered merges and its major compaction, the planes phase's idle and
 busy throttled merges, the serving shard's compaction loop beside
 its writes, its major compaction and the migration (its target's
-flushes and compaction).  The kernel launch
+flushes and compaction), and the node's data-plane leg (its four
+compaction loops and its filtered scan), its shards' major
+compactions and its interpreted leg.  The kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -3957,10 +3986,632 @@ def check_serving_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 12: one node serving over TCP
+# ----------------------------------------------------------------------
+
+NODE_SHARDS = 4
+# Depth cut in half (262144 keys, 65536 on the interpreted leg) to keep
+# the whole script near 900 s on a slow host; widths unchanged.
+NODE_OPS = 131072
+NODE_ABSENT = 10_000
+NODE_DELETES = 1024
+NODE_INTERP_OPS = 32768
+NODE_CONNS = 64
+# Frames in flight on a connection: 16 connections a shard keep 128
+# frames queued there, under the governor's soft limit (192).
+NODE_WINDOW = 8
+# {"v": a uint32, "p": 52 bytes} packs to a 64-byte value.
+NODE_PAD = 52
+OK_BYTES = b"\xa2OK\x02"  # packb("OK") + the Bytes type byte
+
+
+def _node_ports():
+    """The first of 16 ports, every one free for TCP and UDP: db ports
+    from it, peer ports from it + 5, gossip on it + 10."""
+    import socket
+
+    for base in range(7000, 10000, 16):
+        free = True
+        for port in range(base, base + 16):
+            for kind in (socket.SOCK_STREAM, socket.SOCK_DGRAM):
+                with socket.socket(socket.AF_INET, kind) as sock:
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                    try:
+                        sock.bind(("127.0.0.1", port))
+                    except OSError:
+                        free = False
+            if not free:
+                break
+        if free:
+            return base
+    raise RuntimeError("node: no 16 free ports in 7000-9999")
+
+
+def _refused(port) -> bool:
+    import socket
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=1):
+            return False
+    except OSError:
+        return True
+
+
+# The load: a child process (``chip_smoke.py --node-load plan``) that
+# imports the stdlib and the port's msgpack codec, and nothing else.
+
+
+async def _load_frames(codec, ports, ops, conns, window):
+    """Every (shard, frame, expected) of ``ops`` over ``conns`` keepalive
+    connections (an equal share a shard, ops dealt round-robin), each
+    with ``window`` frames in flight.  ``expected`` is the response
+    bytes (payload and type byte) or an error kind.  An ``Overloaded``
+    answer is sent again after 50 ms, as a client retries it.  Returns
+    (seconds, mismatches, first mismatches, retries)."""
+    import collections
+    import struct
+
+    per_shard = conns // len(ports)
+    lanes = [[] for _ in range(per_shard * len(ports))]
+    dealt = [0] * len(ports)
+    for shard, frame, expected in ops:
+        lanes[shard * per_shard + dealt[shard] % per_shard].append(
+            (frame, expected))
+        dealt[shard] += 1
+    bad, first_bad, retries = [0], [], [0]
+
+    async def lane(i, items):
+        if not items:
+            return
+        items = collections.deque(items)
+        reader, writer = await asyncio.open_connection(
+            "127.0.0.1", ports[i // per_shard])
+        try:
+            while items:
+                chunk = [items.popleft()
+                         for _ in range(min(window, len(items)))]
+                writer.write(b"".join(f for f, _ in chunk))
+                again = []
+                for frame, expected in chunk:
+                    (n,) = struct.unpack("<I", await reader.readexactly(4))
+                    resp = await reader.readexactly(n)
+                    if resp[-1] == 0 and codec.unpackb(
+                            resp[:-1])[0] == "Overloaded":
+                        again.append((frame, expected))
+                        continue
+                    if isinstance(expected, bytes):
+                        ok = resp == expected
+                    else:
+                        ok = resp[-1] == 0 and codec.unpackb(
+                            resp[:-1])[0] == expected
+                    if not ok:
+                        bad[0] += 1
+                        if len(first_bad) < 3:
+                            first_bad.append([repr(frame[2:60]),
+                                              repr(resp[:80])])
+                if again:
+                    retries[0] += len(again)
+                    await asyncio.sleep(0.05)
+                    items.extendleft(reversed(again))
+        finally:
+            writer.close()
+            await writer.wait_closed()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(lane(i, items) for i, items in enumerate(lanes)))
+    return time.perf_counter() - t0, bad[0], first_bad, retries[0]
+
+
+async def _request(codec, port, req):
+    """One request on its own connection: (type byte, decoded body)."""
+    import struct
+
+    body = codec.packb(req)
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(struct.pack("<H", len(body)) + body)
+        (n,) = struct.unpack("<I", await reader.readexactly(4))
+        resp = await reader.readexactly(n)
+    finally:
+        writer.close()
+        await writer.wait_closed()
+    return resp[-1], codec.unpackb(resp[:-1])
+
+
+async def _load_scan(codec, port, request):
+    """scan, then scan_next until the cursor is nil, a shed chunk sent
+    again with its cursor: the rows sorted by key, their digest, the
+    count aggregate, chunks and sheds."""
+    rows, rtype, chunks, sheds, agg = [], "scan", 0, 0, None
+    req = dict(request)
+    t0 = time.perf_counter()
+    while True:
+        kind, body = await _request(codec, port, {**req, "type": rtype})
+        if kind == 0:
+            if body[0] != "Overloaded" or sheds > 200:
+                raise RuntimeError(f"scan: {body}")
+            sheds += 1
+            await asyncio.sleep(0.05)
+            continue
+        chunks += 1
+        rows.extend(body["entries"])
+        agg = body.get("agg", agg)
+        if body["cursor"] is None:
+            break
+        req, rtype = {"cursor": body["cursor"]}, "scan_next"
+    rows.sort(key=lambda r: r[0])
+    return {"rows": len(rows), "agg": agg, "chunks": chunks, "sheds": sheds,
+            "s": time.perf_counter() - t0,
+            "digest": hashlib.sha256(codec.packb(rows)).hexdigest()}
+
+
+async def _load_steps(codec, plan):
+    ports = plan["ports"]
+    out = {}
+    for step in plan["steps"]:
+        name, kind = step["name"], step["kind"]
+        if kind == "frames":
+            secs, bad, first_bad, retries = await _load_frames(
+                codec, ports, step["ops"], plan["conns"], plan["window"])
+            out[name] = {"n": len(step["ops"]), "s": secs, "bad": bad,
+                         "first_bad": first_bad, "retries": retries}
+        elif kind == "request":
+            t, body = await _request(codec, ports[0], step["request"])
+            out[name] = {"type": t, "body": body}
+        elif kind == "scan":
+            out[name] = await _load_scan(codec, ports[0], step["request"])
+        elif kind == "stats":
+            out[name] = [(await _request(codec, p, {"type": "get_stats"}))[1]
+                         for p in ports]
+    return out
+
+
+def node_load_main(plan_path) -> int:
+    """The node phase's load, in its own process: one JSON line of
+    counts, seconds and what the node answered."""
+    import importlib.util
+    import pickle
+
+    # The codec module alone, by its path: the package's __init__s
+    # import numpy.
+    spec = importlib.util.spec_from_file_location(
+        "msgpack_codec",
+        os.path.join(ROOT, "dbeel_tpu_torch", "utils", "msgpack_codec.py"))
+    codec = sys.modules["msgpack_codec"] = importlib.util.module_from_spec(
+        spec)
+    spec.loader.exec_module(codec)
+    with open(plan_path, "rb") as f:
+        plan = pickle.load(f)
+    out = asyncio.run(_load_steps(codec, plan))
+    # What this process imported beyond the stdlib (it runs with -S:
+    # no site hooks).
+    out["imports"] = sorted({m.split(".")[0] for m in sys.modules}
+                            - set(sys.stdlib_module_names) - {"__main__"})
+    print(json.dumps(out, default=repr))
+    return 0
+
+
+async def _run_load(plan, path):
+    """Write ``plan`` to ``path`` and run the load child on it; returns
+    what it printed."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(plan, f)
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-S", os.path.abspath(__file__), "--node-load", path,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    stdout, stderr = await proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"node load failed ({proc.returncode}): "
+                           f"{stderr.decode()[-3000:]}")
+    imported = stderr.decode().strip()
+    if imported:
+        log(f"node load stderr: {imported[-2000:]}")
+    return json.loads(stdout.decode().strip().splitlines()[-1])
+
+
+# The node itself, in this process, so the launch counters are its own.
+
+
+async def _start_node(d, device):
+    """The port's run_node on config.parse_args(["--dir", d, "--shards",
+    "4", "--port", ..., "--remote-shard-port", ..., "--gossip-port",
+    ...]), the defaults for the rest; returns (config, its shards as
+    run_node built them, its task) once every db port accepts."""
+    from dbeel_tpu_torch import config
+    from dbeel_tpu_torch.server import run as node_run
+
+    base = _node_ports()
+    cfg = config.parse_args([
+        "--dir", d, "--shards", str(NODE_SHARDS), "--port", str(base),
+        "--remote-shard-port", str(base + 5), "--gossip-port",
+        str(base + 10)])
+    shards = []
+    real = node_run.create_shard
+
+    def capture(*args, **kw):
+        shards.append(real(*args, **kw))
+        return shards[-1]
+
+    node_run.create_shard = capture
+    task = asyncio.ensure_future(node_run.run_node(cfg, device=device))
+    try:
+        deadline = time.perf_counter() + 120
+        while len(shards) < NODE_SHARDS or any(
+                _refused(cfg.db_port(i)) for i in range(NODE_SHARDS)):
+            if task.done():
+                task.result()
+                raise RuntimeError("node: run_node returned at start")
+            if time.perf_counter() > deadline:
+                raise RuntimeError("node: db ports never accepted")
+            await asyncio.sleep(0.05)
+    finally:
+        node_run.create_shard = real
+    return cfg, shards, task
+
+
+async def _stop_node(cfg, shards, task):
+    """Stop every shard; run_node returns within 10 s and every db and
+    peer port then refuses connections.  Returns the seconds."""
+    t0 = time.perf_counter()
+    for s in shards:
+        await s.stop()
+    await asyncio.wait_for(task, 10)
+    secs = time.perf_counter() - t0
+    open_ports = [p for i in range(NODE_SHARDS)
+                  for p in (cfg.db_port(i), cfg.remote_port(i))
+                  if not _refused(p)]
+    if open_ports:
+        raise AssertionError(f"node: ports {open_ports} still accept")
+    return secs
+
+
+def _node_docs(np, seed, n_ops, n_absent):
+    """``n_ops`` distinct 16-character keys with 64-byte documents
+    {"v": a uint32, "p": 52 bytes}, and ``n_absent`` other keys."""
+    rng = np.random.default_rng([seed, 12])
+    want = n_ops + n_absent
+    blob = rng.bytes(8 * (want + 64)).hex()
+    keys = list(dict.fromkeys(
+        blob[i:i + 16] for i in range(0, len(blob), 16)))[:want]
+    vs = rng.integers(1 << 16, 1 << 32, size=n_ops)
+    pads = rng.bytes(NODE_PAD * n_ops)
+    docs = [{"v": int(vs[i]), "p": pads[i * NODE_PAD:(i + 1) * NODE_PAD]}
+            for i in range(n_ops)]
+    return keys[:n_ops], docs, keys[n_ops:]
+
+
+def _owners(shards, keys):
+    """The db shard (by id) that owns each key on the node's ring."""
+    import bisect
+
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+    from dbeel_tpu_torch.utils.murmur import murmur3_32_batch
+
+    ring = shards[0]._hash_sorted
+    hashes = shards[0]._sorted_hashes
+    ids = {s.shard_name: s.id for s in shards}
+    out = []
+    for h in murmur3_32_batch([codec.packb(k) for k in keys]).tolist():
+        out.append(ids[ring[bisect.bisect_left(hashes, h) % len(ring)].name])
+    return out
+
+
+def _frames_plan(codec, shards, pairs, kind):
+    """(shard, frame, expected) for each (key, doc) of ``pairs``: sets
+    answer "OK"; gets the document, or KeyNotFound where it is None;
+    deletes "OK"."""
+    ops = []
+    for shard, (key, doc) in zip(_owners(shards, [k for k, _ in pairs]),
+                                 pairs):
+        req = {"type": kind, "collection": "c", "key": key,
+               "keepalive": True}
+        if kind == "set":
+            req["value"] = doc
+            expected = OK_BYTES
+        elif kind == "get":
+            expected = ("KeyNotFound" if doc is None
+                        else codec.packb(doc) + b"\x01")
+        else:
+            expected = OK_BYTES
+        body = codec.packb(req)
+        ops.append((shard, len(body).to_bytes(2, "little") + body, expected))
+    return ops
+
+
+def _scan_where():
+    """phase 6's scan_plane filter over this phase's values: a
+    comparison leaf and a range leaf, about 0.5% of the rows."""
+    lo = 1 << 31
+    hi = lo + (1 << 32) // 100
+    return ["and", ["cmp", "v", "<", (lo + hi) // 2], ["range", "v", lo, hi]]
+
+
+async def _node_tables(busy, shards):
+    """Wait until every shard's compaction loop has merged after the
+    last flush (``busy``: merges in flight); returns each shard's
+    (flushed, tables left)."""
+    out = []
+    for s in shards:
+        tree = s.collections["c"].tree
+        await _loop_settled(busy, tree)
+        out.append((tree._index // 2,
+                    len(tree.sstable_indices_and_sizes())))
+    return out
+
+
+def _major_twins(cfg, shards, device):
+    """Each shard's tables (copied after the node stopped), major-
+    compacted on the card and by the cpu strategy: SHA-256 of both, by
+    shard, and the card's launches."""
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.storage import LSMTree
+    from dbeel_tpu_torch.storage.compaction import get_strategy
+    from dbeel_tpu_torch.storage.entry import file_name
+
+    out = []
+    _cuda.reset_launches()
+    for s in shards:
+        src = os.path.join(cfg.dir, f"c-{s.id}")
+        digests = {}
+        for name, strategy in (("card", get_strategy("device", device=device)),
+                               ("cpu", get_strategy("cpu"))):
+            d = os.path.join(WORK, "node", "twins", f"{s.id}-{name}")
+            os.makedirs(d)
+            for f in os.listdir(src):
+                if not f.endswith(".memtable"):
+                    shutil.copy(os.path.join(src, f), d)
+            tree = LSMTree.open_or_create(
+                d, capacity=8192, memtable_kind="sorted", strategy=strategy,
+                gc_grace_s=cfg.gc_grace_s())
+            tables = [i for i, _ in tree.sstable_indices_and_sizes()]
+            out_index = max(tables) + 1
+            asyncio.run(tree.compact(tables, out_index,
+                                     keep_tombstones=False))
+            tree.close()
+            digests[name] = {ext: _table_digests(d).get(file_name(
+                out_index, ext)) for ext in ("data", "index", "bloom", "sums")}
+            shutil.rmtree(d)
+        out.append((len(tables), digests["card"] == digests["cpu"]
+                    and digests["card"]["data"] is not None))
+    return out, dict(_cuda.launches)
+
+
+async def _node_leg_dp(torch, np, seed, n_ops, device):
+    """The data-plane leg on a fresh node; returns what it measured."""
+    from dbeel_tpu_torch import query as Q
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.server import coalescer, tasks
+    from dbeel_tpu_torch.storage import LSMTree
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    t0 = time.perf_counter()
+    cfg, shards, task = await _start_node(
+        os.path.join(WORK, "node", "dp"), device)
+    t_start = time.perf_counter() - t0
+    keys, docs, absent = _node_docs(np, seed, n_ops, NODE_ABSENT)
+    rng = np.random.default_rng([seed, 13])
+    dead = [keys[i] for i in rng.choice(n_ops, NODE_DELETES, replace=False)]
+    oracle = dict(zip(keys, docs))
+    where = _scan_where()
+    lo, cut = where[2][2], where[1][3]
+    gone = set(dead)
+    scanned = sorted([k, d] for k, d in oracle.items()
+                     if k not in gone and lo <= d["v"] < cut)
+    scan_spec = Q.pack_spec(*Q.build_spec(where, None))
+    count_spec = Q.pack_spec(*Q.build_spec(where, {"op": "count"}))
+    plan = {"ports": [cfg.db_port(i) for i in range(NODE_SHARDS)],
+            "conns": NODE_CONNS, "window": NODE_WINDOW, "steps": [
+        {"name": "create", "kind": "request", "request": {
+            "type": "create_collection", "name": "c",
+            "replication_factor": 1}},
+        {"name": "sets", "kind": "frames", "ops": _frames_plan(
+            codec, shards, list(oracle.items()), "set")},
+        {"name": "gets", "kind": "frames", "ops": _frames_plan(
+            codec, shards, list(oracle.items()), "get")},
+        {"name": "absent", "kind": "frames", "ops": _frames_plan(
+            codec, shards, [(k, None) for k in absent], "get")},
+        {"name": "deletes", "kind": "frames", "ops": _frames_plan(
+            codec, shards, [(k, None) for k in dead], "delete")},
+        {"name": "deleted", "kind": "frames", "ops": _frames_plan(
+            codec, shards, [(k, None) for k in dead], "get")},
+        {"name": "scan", "kind": "scan", "request": {
+            "collection": "c", "spec": scan_spec}},
+        {"name": "count", "kind": "scan", "request": {
+            "collection": "c", "spec": count_spec}},
+        {"name": "get_stats", "kind": "stats"},
+    ]}
+    busy = [0]
+    real_compact_tree = tasks.compact_tree
+
+    async def watched(*args):
+        busy[0] += 1
+        try:
+            await real_compact_tree(*args)
+        finally:
+            busy[0] -= 1
+
+    # The loops' merges, by tree.
+    merges = {}
+    real_compact = LSMTree.compact
+
+    async def counted(tree, *args, **kw):
+        out = await real_compact(tree, *args, **kw)
+        merges[tree.dir_path] = merges.get(tree.dir_path, 0) + 1
+        return out
+
+    LSMTree.compact = counted
+
+    tasks.compact_tree = watched
+    try:
+        # Run node_dp: every count zeroed just before the load, read
+        # after the last get_stats.
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with _device_trace(torch, device) as prof:
+            got = await _run_load(plan, os.path.join(WORK, "node", "dp.plan"))
+            wall = time.perf_counter() - t0
+        counts = dict(_cuda.launches)
+        tables = await _node_tables(busy, shards)
+    finally:
+        tasks.compact_tree = real_compact_tree
+        LSMTree.compact = real_compact
+    dp_stats = {}
+    for s in shards:
+        for k, v in s.dataplane.stats().items():
+            dp_stats[k] = dp_stats.get(k, 0) + v
+    stats = got.pop("get_stats")
+    t_stop = await _stop_node(cfg, shards, task)
+    busy_ms = _device_busy(prof)[0] if prof is not None else None
+    by_shard = [merges.get(s.collections["c"].tree.dir_path, 0)
+                for s in shards]
+    return dict(cfg=cfg, shards=shards, got=got, counts=counts,
+                tables=tables, merges=by_shard, stats=stats,
+                dp_stats=dp_stats, wall=wall, busy_ms=busy_ms,
+                t_start=t_start, t_stop=t_stop, scanned=scanned,
+                coalescer=coalescer.stats(device))
+
+
+async def _node_leg_interp(np, seed, n_ops, device):
+    """The interpreted leg: a fresh node with DBEEL_NO_DATAPLANE=1."""
+    from dbeel_tpu_torch.ops import _cuda
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    os.environ["DBEEL_NO_DATAPLANE"] = "1"
+    try:
+        cfg, shards, task = await _start_node(
+            os.path.join(WORK, "node", "interp"), device)
+    finally:
+        del os.environ["DBEEL_NO_DATAPLANE"]
+    if any(s.dataplane is not None for s in shards):
+        raise AssertionError("node_interp: a shard kept its data plane")
+    keys, docs, _ = _node_docs(np, seed + 1, n_ops, 0)
+    pairs = list(zip(keys, docs))
+    plan = {"ports": [cfg.db_port(i) for i in range(NODE_SHARDS)],
+            "conns": NODE_CONNS, "window": NODE_WINDOW, "steps": [
+        {"name": "create", "kind": "request", "request": {
+            "type": "create_collection", "name": "c",
+            "replication_factor": 1}},
+        {"name": "sets", "kind": "frames",
+         "ops": _frames_plan(codec, shards, pairs, "set")},
+        {"name": "gets", "kind": "frames",
+         "ops": _frames_plan(codec, shards, pairs, "get")},
+    ]}
+    _cuda.reset_launches()
+    got = await _run_load(plan, os.path.join(WORK, "node", "interp.plan"))
+    counts = dict(_cuda.launches)
+    t_stop = await _stop_node(cfg, shards, task)
+    return dict(got=got, counts=counts, t_stop=t_stop)
+
+
+def _check_load(leg, got):
+    for name, step in got.items():
+        if step.get("bad"):
+            raise AssertionError(f"{leg} {name}: {step['bad']} answers "
+                                 f"differ, first {step['first_bad']}")
+        if "type" in step and step["type"] == 0:
+            raise AssertionError(f"{leg} {name}: {step['body']}")
+
+
+def phase_node(torch, np, seed=7, n_ops=NODE_OPS, n_interp=NODE_INTERP_OPS,
+               device="cuda"):
+    """One 4-shard port node serving over TCP while its compaction loops
+    merge on the card.  Returns the launch counts of its three runs."""
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(WORK, "node"))
+    dp = asyncio.run(_node_leg_dp(torch, np, seed, n_ops, device))
+    got = dp["got"]
+    imports = got.pop("imports")
+    _check_load("node_dp", got)
+    if imports != ["msgpack_codec"]:
+        raise AssertionError(f"node load imported {imports}")
+    dev_type = torch.device(device).type
+    log("node get_stats: " + json.dumps(dp["stats"], sort_keys=True,
+                                        default=repr))
+    for st in dp["stats"]:
+        strategy = st["collections"]["c"]["strategy"]
+        want = json.loads(json.dumps(dp["coalescer"], default=repr))
+        if (not strategy.startswith(f"device on {dev_type}")
+                or st["device_coalescer"] != want):
+            raise AssertionError(f"node: get_stats names {strategy!r}, "
+                                 f"coalescer {st['device_coalescer']}")
+    scan, count = got["scan"], got["count"]
+    want_digest = hashlib.sha256(codec.packb(dp["scanned"])).hexdigest()
+    if (scan["rows"] != len(dp["scanned"]) or scan["digest"] != want_digest
+            or count["agg"] != len(dp["scanned"])):
+        raise AssertionError(f"node scan: {scan['rows']} rows (want "
+                             f"{len(dp['scanned'])}), count {count['agg']}")
+    for i, (flushed, left) in enumerate(dp["tables"]):
+        if not left < flushed:
+            raise AssertionError(f"node: shard {i} has {left} tables of "
+                                 f"{flushed} flushed")
+    twins, major = _major_twins(dp["cfg"], dp["shards"], device)
+    if not all(same for _n, same in twins):
+        raise AssertionError(f"node_major: tables differ from cpu: {twins}")
+    interp = asyncio.run(_node_leg_interp(np, seed, n_interp, device))
+    interp["got"].pop("imports")
+    _check_load("node_interp", interp["got"])
+    secs = time.perf_counter() - t0
+    legs = {"dp": got, "interp": interp["got"]}
+    rates = {leg: {name: round(step["n"] / step["s"]) for name, step in
+                   g.items() if "n" in step} for leg, g in legs.items()}
+    busy = (f"{dp['busy_ms']:.2f} ms of {dp['wall'] * 1e3:.1f} ms = "
+            f"{dp['busy_ms'] / (dp['wall'] * 1e3):.5f}"
+            if dp["busy_ms"] is not None else "not traced (cpu)")
+    data_frames = sum(got[n]["n"] for n in ("sets", "gets", "absent",
+                                            "deletes", "deleted"))
+    # Answered in C: sets and deletes, memtable gets and table gets.
+    punts = data_frames - sum(dp["dp_stats"].get(k, 0) for k in (
+        "fast_sets", "fast_gets", "fast_table_gets"))
+    log(f"node: {NODE_SHARDS} shards, {NODE_CONNS} keepalive connections "
+        f"({NODE_WINDOW} frames in flight each), started in "
+        f"{dp['t_start']:.2f}s; data-plane leg {dp['wall']:.2f}s: rates/s "
+        f"{json.dumps(rates['dp'])}, retries "
+        f"{ {n: s['retries'] for n, s in got.items() if 'retries' in s} }, "
+        f"punts {punts} of {data_frames} data frames (data plane "
+        f"{json.dumps(dp['dp_stats'], sort_keys=True)}); scan {scan['rows']} "
+        f"rows in {scan['chunks']} chunks {scan['s']:.2f}s ({scan['sheds']} "
+        f"sheds), count {count['agg']} {count['s']:.2f}s; merges by shard "
+        f"{dp['merges']}, (flushed, tables left) by shard {dp['tables']}; "
+        f"card busy {busy}; launches {dp['counts']}; stopped in "
+        f"{dp['t_stop']:.2f}s")
+    log(f"node_major: (tables, SHA-256-equal to the cpu merge) by shard "
+        f"{twins}, launches {major}")
+    log(f"node_interp (DBEEL_NO_DATAPLANE=1): rates/s "
+        f"{json.dumps(rates['interp'])}, retries "
+        f"{ {n: s['retries'] for n, s in interp['got'].items() if 'retries' in s} }, "
+        f"launches {interp['counts']}; stopped in {interp['t_stop']:.2f}s")
+    shutil.rmtree(os.path.join(WORK, "node"))
+    log(f"node: {secs:.1f}s")
+    return {"node_dp": dp["counts"], "node_major": major,
+            "node_interp": interp["counts"]}
+
+
+def check_node_launches(runs):
+    """The node's compaction loops merge on K3 or K4 (where prefixes
+    tie), its filtered scan evaluates on K8a and K8b, and nothing else
+    launches; the major compactions take K3 (K4 on ties); the
+    interpreted leg's loops launch K3 or K4 only."""
+    got = runs["node_dp"]
+    rest = {k: v for k, v in got.items()
+            if k not in ("K3", "K4", "K8a", "K8b")}
+    if not (got.get("K3", 0) + got.get("K4", 0)) or any(rest.values()):
+        raise AssertionError(f"node_dp launches {got}")
+    for run in ("node_major", "node_interp"):
+        got = runs[run]
+        rest = {k: v for k, v in got.items() if k not in ("K3", "K4")}
+        if any(rest.values()) or (run == "node_major" and not got.get("K3")):
+            raise AssertionError(f"{run} launches {got}")
+
+
+# ----------------------------------------------------------------------
 
 
 PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena",
-          "index", "planes", "serving")
+          "index", "planes", "serving", "node")
 
 
 def main(argv=None) -> int:
@@ -3973,7 +4624,14 @@ def main(argv=None) -> int:
              f"(default: all of {','.join(PHASES)}; planes without "
              "compaction merges the dense keyspace unthrottled itself)",
     )
+    parser.add_argument(
+        "--seed", type=int, default=7,
+        help="seed of the node phase's keys and documents (default 7)",
+    )
+    parser.add_argument("--node-load", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.node_load:
+        return node_load_main(args.node_load)
     only = [p for p in args.only.split(",") if p]
     if not set(only) <= set(PHASES):
         parser.error(f"unknown phase in {args.only!r}")
@@ -4054,6 +4712,10 @@ def main(argv=None) -> int:
             serving_runs = phase_serving(torch, np)
             check_serving_launches(serving_runs)
             runs.update(serving_runs)
+        if "node" in only:
+            node_runs = phase_node(torch, np, seed=args.seed)
+            check_node_launches(node_runs)
+            runs.update(node_runs)
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.

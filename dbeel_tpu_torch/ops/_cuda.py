@@ -218,6 +218,31 @@ def query_lib() -> ctypes.CDLL:
     return _load("query", _bind_query)
 
 
+def load_all() -> None:
+    """Build every source that has no library yet, one ``nvcc`` each,
+    side by side, then load the four libraries (a serving node does
+    this once at boot, so no build runs in the middle of serving)."""
+    errors = []
+
+    def _build(name):
+        try:
+            build(name)
+        except Exception as e:  # raised below, after every build ends
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=_build, args=(n,)) for n in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f"kernel build failed: {errors}")
+    lib()
+    merge_path_lib()
+    query_lib()
+    dist_lib()
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")

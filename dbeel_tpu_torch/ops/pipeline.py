@@ -327,7 +327,10 @@ class _PipelineError(Exception):
 # Process-wide pipeline accounting: runs that produced the output, and
 # algorithmic declines (one equal-prefix group larger than the kernel
 # rows: the merge then takes the single-shot path).
+# Several shards' compaction loops merge at once from executor
+# threads, so the counts are taken under a lock.
 pipeline_stats = {"runs": 0, "declined": 0}
+_stats_lock = threading.Lock()
 
 
 # One profiler may run in a process at a time: traced merges take turns.
@@ -398,7 +401,8 @@ def pipeline_merge(
 
     profile_dir = os.environ.get("DBEEL_PROFILE_DIR")
     result = _traced(profile_dir, device, run) if profile_dir else run()
-    pipeline_stats["runs" if result is not None else "declined"] += 1
+    with _stats_lock:
+        pipeline_stats["runs" if result is not None else "declined"] += 1
     return result
 
 

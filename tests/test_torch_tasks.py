@@ -30,6 +30,7 @@ from torch_shards import (  # noqa: F401
     link,
     make_shard,
     no_leftovers,
+    reap_reference_waiters,
     run,
     serve,
     shutdown,
@@ -69,18 +70,6 @@ async def _contents(tree):
 # ---------------------------------------------------------------------
 # Compaction: compact_tree under the share scheduler, and the loop
 # ---------------------------------------------------------------------
-
-
-async def _reap_change_waiter():
-    """dbeel_tpu's run_compaction_loop leaves its collections-change
-    waiter pending when it is cancelled (the port's cancels it): cancel
-    that one task, so the check for pending tasks holds the port
-    alone."""
-    waiters = [t for t in asyncio.all_tasks()
-               if "LocalEvent.wait" in repr(t.get_coro()) and not t.done()]
-    for t in waiters:
-        t.cancel()
-    await asyncio.gather(*waiters, return_exceptions=True)
 
 
 TREES = {
@@ -190,7 +179,7 @@ def test_run_compaction_loop_merges_equal_tables(tmp_path):
                 loop.cancel()
                 await asyncio.gather(loop, return_exceptions=True)
                 if pkg == "ref":
-                    await _reap_change_waiter()
+                    await reap_reference_waiters()
             finally:
                 tasks.compact_tree = real
             tables = {n: _tables(c.tree.dir_path)

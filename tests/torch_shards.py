@@ -18,9 +18,18 @@ runs.
 
 ``run`` fails a test that leaves a task pending on its loop, and the
 ``no_leftovers`` fixture one that leaves a thread alive.
+
+Whole nodes (``Node``) run each package's ``run.run_shard`` on ports
+from ``port_block``: a range of the port's tests' own, below
+``tests/harness.py``'s 11000-15999 and below the ephemeral range, and
+offset by the xdist worker, so no two workers and no reference test
+bind the same port.
 """
 
 import asyncio
+import itertools
+import os
+import socket
 import threading
 import time
 from types import SimpleNamespace
@@ -29,19 +38,24 @@ import pytest
 
 from dbeel_tpu import config as jconfig
 from dbeel_tpu import errors as jerrors
+from dbeel_tpu import flow_events as jflow
 from dbeel_tpu.cluster import local_comm as jlocal
 from dbeel_tpu.cluster import messages as jmsgs
 from dbeel_tpu.cluster import remote_comm as jremote
 from dbeel_tpu.server import db_server as jdb
+from dbeel_tpu.server import run as jrun
 from dbeel_tpu.server import shard as jshard
 from dbeel_tpu.server import tasks as jtasks
 from dbeel_tpu.storage import page_cache as jcache
+from dbeel_tpu.utils import event as jevent
 from dbeel_tpu_torch import config as tconfig
 from dbeel_tpu_torch import errors as terrors
+from dbeel_tpu_torch import flow_events as tflow
 from dbeel_tpu_torch.cluster import local_comm as tlocal
 from dbeel_tpu_torch.cluster import messages as tmsgs
 from dbeel_tpu_torch.cluster import remote_comm as tremote
 from dbeel_tpu_torch.server import db_server as tdb
+from dbeel_tpu_torch.server import run as trun
 from dbeel_tpu_torch.server import shard as tshard
 from dbeel_tpu_torch.server import tasks as ttasks
 from dbeel_tpu_torch.storage import page_cache as tcache
@@ -50,11 +64,11 @@ PKGS = {
     "ref": SimpleNamespace(
         config=jconfig, errors=jerrors, local=jlocal, msgs=jmsgs,
         remote=jremote, db=jdb, shard=jshard, tasks=jtasks, cache=jcache,
-        kw={}),
+        run=jrun, flow=jflow, kw={}),
     "port": SimpleNamespace(
         config=tconfig, errors=terrors, local=tlocal, msgs=tmsgs,
         remote=tremote, db=tdb, shard=tshard, tasks=ttasks, cache=tcache,
-        kw={"device": "cpu"}),
+        run=trun, flow=tflow, kw={"device": "cpu"}),
 }
 
 # The per-boot fields of get_stats and of the gossip source: a nonce
@@ -211,3 +225,139 @@ def key_tree(obj):
     if isinstance(obj, dict):
         return {k: key_tree(v) for k, v in obj.items()}
     return None
+
+
+# ---------------------------------------------------------------------
+# Whole nodes on ports of their own
+# ---------------------------------------------------------------------
+
+# Worker w of the suite owns [PORT_BASE + w * PORT_SPAN, + PORT_SPAN):
+# 7 workers fit below 11000, where tests/harness.py's blocks start.
+PORT_BASE = 4000
+PORT_SPAN = 1000
+PORT_BLOCK = 16
+_blocks = itertools.count()
+
+
+def _bindable(port):
+    """Nothing listens on ``port``, for TCP or UDP (gossip)."""
+    for kind in (socket.SOCK_STREAM, socket.SOCK_DGRAM):
+        with socket.socket(socket.AF_INET, kind) as sock:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                return False
+    return True
+
+
+def port_block():
+    """The first port of a block of ``PORT_BLOCK`` ports, none bound.
+    A worker cycles through its span, block after block, so a block
+    comes back only after every other one of its span was handed out,
+    and one still bound is skipped."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    w = int(worker[2:]) if worker[2:].isdigit() else 0
+    lo = PORT_BASE + (w % 7) * PORT_SPAN
+    n_blocks = PORT_SPAN // PORT_BLOCK
+    for _ in range(n_blocks):
+        base = lo + (next(_blocks) % n_blocks) * PORT_BLOCK
+        if all(_bindable(p) for p in range(base, base + PORT_BLOCK)):
+            return base
+    raise RuntimeError(f"no free port block in [{lo}, {lo + PORT_SPAN})")
+
+
+def node_args(d, base, name="n0", *extra):
+    """A test node's command line on the block at ``base``: db ports
+    from ``base``, peer ports from ``base + 5``, gossip on ``base +
+    10`` (up to 5 shards); the sorted memtable of 4096 entries, the
+    heap merge and no CAS boot barrier unless ``extra`` overrides
+    them."""
+    return ["--dir", d, "--name", name, "--port", str(base),
+            "--remote-shard-port", str(base + 5),
+            "--gossip-port", str(base + 10),
+            "--memtable-kind", "sorted", "--compaction-backend", "heap",
+            "--memtable-capacity", "4096", "--cas-boot-barrier-ms", "0",
+            "--failure-detection-interval", "50", *extra]
+
+
+async def reap_reference_waiters():
+    """dbeel_tpu's compaction loop leaves its change waiter (a
+    ``LocalEvent.wait``) pending when it is cancelled; the port's
+    cancels its own.  Cancel and await the reference's."""
+    waiters = [t for t in asyncio.all_tasks() if not t.done()
+               and t.get_coro().cr_code.co_filename == jevent.__file__]
+    for t in waiters:
+        t.cancel()
+    await asyncio.gather(*waiters, return_exceptions=True)
+
+
+class Node:
+    """Every shard of one node of package ``pkg``, each run by its
+    package's ``run.run_shard`` on the current loop (the port's with
+    ``device="cpu"``), as ``run_node`` runs them."""
+
+    def __init__(self, pkg, config, n_shards=1):
+        self.pkg, self.config, self.n_shards = pkg, config, n_shards
+        self.shards, self.tasks = [], []
+
+    async def start(self):
+        m = PKGS[self.pkg]
+        # START_TASKS is a flow event: the port's are off unless
+        # enabled (the reference's conftest enables its own).
+        m.flow.enable()
+        conns = [m.local.LocalShardConnection(i)
+                 for i in range(self.n_shards)]
+        self.shards = [m.run.create_shard(self.config, i, conns, **m.kw)
+                       for i in range(self.n_shards)]
+        started = asyncio.ensure_future(asyncio.gather(*(
+            s.flow.subscribe(m.flow.FlowEvent.START_TASKS)
+            for s in self.shards)))
+        self.tasks = [asyncio.ensure_future(m.run.run_shard(s, i == 0))
+                      for i, s in enumerate(self.shards)]
+        await asyncio.wait([started, *self.tasks],
+                           return_when=asyncio.FIRST_COMPLETED)
+        if not started.done():
+            started.cancel()
+            await self.crash()
+            dead = [t for t in self.tasks if not t.cancelled()]
+            raise RuntimeError("shard task died during startup") from (
+                dead[0].exception() if dead else None)
+        await asyncio.sleep(0)
+        return self
+
+    async def stop(self, timeout=5.0):
+        """A graceful stop: every shard's stop event, then every
+        run_shard awaited (its tasks cancelled, its listeners closed)."""
+        for s in self.shards:
+            await s.stop()
+        await asyncio.wait_for(
+            asyncio.gather(*self.tasks, return_exceptions=True), timeout)
+        await reap_reference_waiters()
+
+    async def crash(self):
+        """Cancel without stop events: no goodbye gossip."""
+        for s in self.shards:
+            s.crashed = True
+        for t in self.tasks:
+            t.cancel()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+        for s in self.shards:
+            s.close()
+        await reap_reference_waiters()
+
+    @property
+    def db_address(self):
+        return (self.config.ip, self.config.port)
+
+    @property
+    def seed(self):
+        return f"{self.config.ip}:{self.config.remote_shard_port}"
+
+
+def node_config(pkg, d, base=None, name="n0", extra=(), **overrides):
+    """A parsed node config of package ``pkg`` (``node_args``), on a
+    fresh block unless ``base`` names one."""
+    base = port_block() if base is None else base
+    return PKGS[pkg].config.parse_args(
+        node_args(d, base, name, *extra)).replace(**overrides)
