@@ -9,8 +9,9 @@ Run from the root of a checkout, with no arguments:
 e.g. ``--only mesh`` on a host with four cards, where phase 7's
 partitions take one card each, ``--only planes`` for phase 10,
 which then merges its keyspace unthrottled itself, ``--only
-serving`` for phase 11 or ``--only node`` for phase 12; ``--seed``
-seeds phase 12's keys and documents.)
+serving`` for phase 11, ``--only node`` for phase 12 or ``--only
+client`` for phase 13; ``--seed`` seeds the keys and documents of
+phases 12 and 13.)
 
 Phases (any failure exits non-zero):
 
@@ -204,18 +205,44 @@ Phases (any failure exits non-zero):
                 is traced.  node_major: each shard's tables, copied after
                 the node stops, major-compacted on the card, SHA-256
                 equal to the cpu merge.  node_interp: a fresh node with
-                DBEEL_NO_DATAPLANE=1 takes 32768 sets and 32768 gets,
+                DBEEL_NO_DATAPLANE=1 takes 8192 sets and 8192 gets,
                 each through the interpreted path and its pure-Python
                 codec.  Each node stops within 10 s and its ports then
                 refuse connections.  Writes/s and gets/s of both legs,
                 the punts and the merges by shard are logged.
+ 13. client   — the port's own clients driving a fresh 4-shard run_node
+                (as phase 12's) from a child process (chip_smoke.py
+                --client-load) that imports dbeel_tpu_torch.client and
+                its native_client, and no JAX, dbeel_tpu or msgpack, and
+                never initialises CUDA (asserted).  node_client: the C
+                client (NativeDbeelClient) on collection "n": 131072
+                sets of phase 12's keys and documents from --seed through
+                pipe_run, a pipe_get of each (64 in flight a
+                connection), every value read back by
+                multi_get equal to the oracle, 10000 absent keys
+                (KeyNotFound), 1024 deletes read back as KeyNotFound,
+                multi_set/multi_get of 4096 keys in batches of 64, the
+                filtered scan and count of phase 12 (K8a, K8b), a CAS
+                conflict and commit, get_stats of each shard ("device on
+                cuda"); then the async client (DbeelClient, 256 requests
+                in flight) on collection "a": 32768 sets and gets,
+                multi_set/multi_get of 4096 keys in 64s, a filtered scan
+                and a count with a sum aggregate, cas, rmw and an atomic
+                batch on one arc, a Watcher started before 1024 sets
+                that sees each once and in cursor order; and one
+                DbeelClientSync.get_stats.  Every answer equals the
+                oracle; the node's compaction loops merge on the card
+                (K3, K4 on ties); the node stops and its ports refuse
+                connections.  Rates/s per client and op, the retries
+                after Overloaded, the card's busy share of the leg and
+                the launches are logged.
 
 Phases 3-6, 9 and 10 run on get_strategy("device"), so their routes hold
 on a host with several cards, where get_strategy("auto") is the
 distributed backend (asserted: "device" on one card, "distributed" on
 several).
 
-The main path is twenty-five runs — the bench merge, the dense merge,
+The main path is twenty-six runs — the bench merge, the dense merge,
 the two trees' major compactions, the shards' writes with their
 flushes, the shards' compaction, the scan collection's compaction,
 its filtered scans and its scan-plane scan, the mesh phase's
@@ -226,7 +253,9 @@ busy throttled merges, the serving shard's compaction loop beside
 its writes, its major compaction and the migration (its target's
 flushes and compaction), and the node's data-plane leg (its four
 compaction loops and its filtered scan), its shards' major
-compactions and its interpreted leg.  The kernel launch
+compactions and its interpreted leg, and the clients' node (its four
+compaction loops and the clients' filtered scans and counts).  The
+kernel launch
 counters are zeroed just before each and read just after it, and
 reported per run; phase 2's comparison launches, the cross-checks and
 the traced reruns (run after their counts are read) do not count.
@@ -241,6 +270,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -3990,12 +4020,13 @@ def check_serving_launches(runs):
 # ----------------------------------------------------------------------
 
 NODE_SHARDS = 4
-# Depth cut in half (262144 keys, 65536 on the interpreted leg) to keep
-# the whole script near 900 s on a slow host; widths unchanged.
+# Depth cut in half (262144 keys) to keep the whole script near 900 s on
+# a slow host, and the interpreted leg from 65536 to 8192 keys to make
+# room for the clients' phase; widths unchanged.
 NODE_OPS = 131072
 NODE_ABSENT = 10_000
 NODE_DELETES = 1024
-NODE_INTERP_OPS = 32768
+NODE_INTERP_OPS = 8192
 NODE_CONNS = 64
 # Frames in flight on a connection: 16 connections a shard keep 128
 # frames queued there, under the governor's soft limit (192).
@@ -4191,23 +4222,25 @@ def node_load_main(plan_path) -> int:
     return 0
 
 
-async def _run_load(plan, path):
-    """Write ``plan`` to ``path`` and run the load child on it; returns
-    what it printed."""
+async def _run_load(plan, path, flag, site_packages):
+    """Write ``plan`` to ``path`` and run the load child ``flag`` on it,
+    with -S (no site packages) unless ``site_packages``; returns what
+    it printed."""
     import pickle
 
     with open(path, "wb") as f:
         pickle.dump(plan, f)
+    site = [] if site_packages else ["-S"]
     proc = await asyncio.create_subprocess_exec(
-        sys.executable, "-S", os.path.abspath(__file__), "--node-load", path,
+        sys.executable, *site, os.path.abspath(__file__), flag, path,
         stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
     stdout, stderr = await proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"node load failed ({proc.returncode}): "
+        raise RuntimeError(f"{flag[2:]} failed ({proc.returncode}): "
                            f"{stderr.decode()[-3000:]}")
     imported = stderr.decode().strip()
     if imported:
-        log(f"node load stderr: {imported[-2000:]}")
+        log(f"{flag[2:]} stderr: {imported[-2000:]}")
     return json.loads(stdout.decode().strip().splitlines()[-1])
 
 
@@ -4328,6 +4361,13 @@ def _scan_where():
     return ["and", ["cmp", "v", "<", (lo + hi) // 2], ["range", "v", lo, hi]]
 
 
+def _where_rows(oracle):
+    """[key, doc] of the dict ``oracle`` that _scan_where() selects."""
+    where = _scan_where()
+    lo, cut = where[2][2], where[1][3]
+    return [[k, d] for k, d in oracle.items() if lo <= d["v"] < cut]
+
+
 async def _node_tables(busy, shards):
     """Wait until every shard's compaction loop has merged after the
     last flush (``busy``: merges in flight); returns each shard's
@@ -4395,10 +4435,9 @@ async def _node_leg_dp(torch, np, seed, n_ops, device):
     dead = [keys[i] for i in rng.choice(n_ops, NODE_DELETES, replace=False)]
     oracle = dict(zip(keys, docs))
     where = _scan_where()
-    lo, cut = where[2][2], where[1][3]
     gone = set(dead)
-    scanned = sorted([k, d] for k, d in oracle.items()
-                     if k not in gone and lo <= d["v"] < cut)
+    scanned = sorted(_where_rows(
+        {k: d for k, d in oracle.items() if k not in gone}))
     scan_spec = Q.pack_spec(*Q.build_spec(where, None))
     count_spec = Q.pack_spec(*Q.build_spec(where, {"op": "count"}))
     plan = {"ports": [cfg.db_port(i) for i in range(NODE_SHARDS)],
@@ -4450,7 +4489,8 @@ async def _node_leg_dp(torch, np, seed, n_ops, device):
         _cuda.reset_launches()
         t0 = time.perf_counter()
         with _device_trace(torch, device) as prof:
-            got = await _run_load(plan, os.path.join(WORK, "node", "dp.plan"))
+            got = await _run_load(plan, os.path.join(WORK, "node", "dp.plan"),
+                                  "--node-load", site_packages=False)
             wall = time.perf_counter() - t0
         counts = dict(_cuda.launches)
         tables = await _node_tables(busy, shards)
@@ -4499,7 +4539,8 @@ async def _node_leg_interp(np, seed, n_ops, device):
          "ops": _frames_plan(codec, shards, pairs, "get")},
     ]}
     _cuda.reset_launches()
-    got = await _run_load(plan, os.path.join(WORK, "node", "interp.plan"))
+    got = await _run_load(plan, os.path.join(WORK, "node", "interp.plan"),
+                          "--node-load", site_packages=False)
     counts = dict(_cuda.launches)
     t_stop = await _stop_node(cfg, shards, task)
     return dict(got=got, counts=counts, t_stop=t_stop)
@@ -4608,10 +4649,473 @@ def check_node_launches(runs):
 
 
 # ----------------------------------------------------------------------
+# Phase 13: the port's own clients driving one node
+# ----------------------------------------------------------------------
+
+# The C client at node_dp's width: 131072 sets and gets, 10000 absent
+# keys, 1024 deletes; both clients batch 4096 keys in 64s.
+CLIENT_OPS = 131072
+CLIENT_ABSENT = 10_000
+CLIENT_DELETES = 1024
+CLIENT_MULTI = 4096
+CLIENT_BATCH = 64
+# Responses the C client's pipelined train leaves unread on a
+# connection (one a shard): 64, as many as the async client keeps in
+# flight a shard, under the governor's soft limit (192).
+CLIENT_WINDOW = 64
+# The async client: 32768 sets and gets with 256 in flight (a pipelined
+# connection of 64 a shard), and a burst of 1024 sets under a watcher.
+CLIENT_ASYNC_OPS = 32768
+CLIENT_INFLIGHT = 256
+CLIENT_WATCH = 1024
+
+
+def _rows_digest(codec, rows):
+    return hashlib.sha256(codec.packb(sorted(rows))).hexdigest()
+
+
+def _load_native(np, codec, plan, out):
+    """The C client's steps on collection "n"; a dict per step with its
+    ops, seconds and answers that differ from the oracle."""
+    from dbeel_tpu_torch import errors
+    from dbeel_tpu_torch.client.native_client import NativeDbeelClient
+
+    seed, port, n_ops = plan["seed"], plan["port"], plan["n_ops"]
+    keys, docs, absent = _node_docs(np, seed + 2, n_ops + CLIENT_MULTI,
+                                    CLIENT_ABSENT)
+    mkeys, mdocs = keys[n_ops:], docs[n_ops:]
+    keys, docs = keys[:n_ops], docs[:n_ops]
+    oracle = dict(zip(keys, docs))
+    rng = np.random.default_rng([seed, 14])
+    dead = [keys[i] for i in rng.choice(n_ops, CLIENT_DELETES,
+                                        replace=False)]
+
+    with NativeDbeelClient("127.0.0.1", port) as cli:
+        def overloaded():
+            """The Overloaded answers the node has sent (sheds and
+            expired deadlines, in C or interpreted), over its shards:
+            the C walk retries each, a pipelined train counts each as
+            a failure."""
+            return sum(
+                o["shed_ops"] + o["deadline_drops"]
+                for o in (cli.get_stats("127.0.0.1", p)["overload"]
+                          for p in plan["ports"]))
+
+        def step(name, n, fn):
+            before = overloaded()
+            t0 = time.perf_counter()
+            res = fn()
+            s = time.perf_counter() - t0
+            out[name] = {"n": n, "s": s, "retries": overloaded() - before,
+                         **res}
+
+        def create():
+            cli.create_collection("n", 1)
+            cli.sync_metadata()
+            # Every shard holds the collection before the load starts.
+            deadline = time.perf_counter() + 30
+            while not all("n" in cli.get_stats("127.0.0.1", p)["collections"]
+                          for p in plan["ports"]):
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("client: collection n never reached "
+                                       "every shard")
+                time.sleep(0.05)
+            return {"ring": cli.ring_size, "bad": 0}
+
+        step("native_create", 1, create)
+
+        def pipe_sets():
+            # A set the train could not land (a shed too) is a wrong
+            # answer: the train does not retry.
+            failed = cli.pipe_run("n", "set", keys, docs,
+                                  window=CLIENT_WINDOW)
+            return {"failed": failed, "bad": failed}
+
+        step("native_pipe_set", n_ops, pipe_sets)
+
+        def pipe_gets():
+            for k in keys:
+                cli.pipe_get("n", k, window=CLIENT_WINDOW)
+            failed = cli.pipe_drain()
+            return {"failed": failed, "bad": failed}
+
+        step("native_pipe_get", n_ops, pipe_gets)
+
+        def verify():
+            got = cli.multi_get("n", keys)
+            return {"bad": sum(g != d for g, d in zip(got, docs))}
+
+        step("native_verify", n_ops, verify)
+
+        def absent_gets():
+            bad = 0
+            for k in absent:
+                try:
+                    cli.get("n", k)
+                    bad += 1
+                except errors.KeyNotFound:
+                    pass
+            return {"bad": bad}
+
+        step("native_absent", CLIENT_ABSENT, absent_gets)
+
+        def deletes():
+            bad = 0
+            for k in dead:
+                cli.delete("n", k)
+            for k in dead:
+                try:
+                    cli.get("n", k)
+                    bad += 1
+                except errors.KeyNotFound:
+                    pass
+            for k in dead:
+                del oracle[k]
+            return {"bad": bad}
+
+        step("native_delete", 2 * CLIENT_DELETES, deletes)
+
+        def multi():
+            for i in range(0, CLIENT_MULTI, CLIENT_BATCH):
+                cli.multi_set("n", list(zip(mkeys[i:i + CLIENT_BATCH],
+                                            mdocs[i:i + CLIENT_BATCH])))
+            bad = 0
+            for i in range(0, CLIENT_MULTI, CLIENT_BATCH):
+                got = cli.multi_get("n", mkeys[i:i + CLIENT_BATCH])
+                bad += sum(g != d for g, d in
+                           zip(got, mdocs[i:i + CLIENT_BATCH]))
+            oracle.update(zip(mkeys, mdocs))
+            return {"bad": bad}
+
+        step("native_multi", 2 * CLIENT_MULTI, multi)
+        want = _where_rows(oracle)
+
+        def scan():
+            rows = [[k, d] for k, d in cli.scan("n", filter=_scan_where())]
+            return {"rows": len(rows), "bad": int(
+                _rows_digest(codec, rows) != _rows_digest(codec, want))}
+
+        step("native_scan", 1, scan)
+
+        def count():
+            n = cli.count("n", filter=_scan_where())
+            return {"count": n, "bad": int(n != len(want))}
+
+        step("native_count", 1, count)
+
+        def cas():
+            k = next(k for k in keys if k in oracle)
+            new = {"v": 1, "p": b"cas"}
+            lost = cli.cas("n", k, new, expect_value={"v": 0})
+            won = cli.cas("n", k, new, expect_value=oracle[k])
+            return {"bad": int(lost or not won or cli.get("n", k) != new)}
+
+        step("native_cas", 2, cas)
+
+        def stats():
+            strategies = [
+                cli.get_stats("127.0.0.1", p)["collections"]["n"]["strategy"]
+                for p in plan["ports"]]
+            return {"strategies": strategies, "bad": 0}
+
+        step("native_stats", len(plan["ports"]), stats)
+    return len(want)
+
+
+async def _load_async(np, plan, out):
+    """The async client's steps on collection "a"."""
+    from dbeel_tpu_torch import errors
+    from dbeel_tpu_torch.client import DbeelClient
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+    from dbeel_tpu_torch.utils.murmur import hash_bytes
+
+    seed, n_ops = plan["seed"], plan["n_async"]
+    keys, docs, _ = _node_docs(np, seed + 3,
+                               n_ops + CLIENT_MULTI + CLIENT_WATCH, 0)
+    akeys, adocs = keys[:n_ops], docs[:n_ops]
+    mkeys = keys[n_ops:n_ops + CLIENT_MULTI]
+    mdocs = docs[n_ops:n_ops + CLIENT_MULTI]
+    wkeys, wdocs = keys[-CLIENT_WATCH:], docs[-CLIENT_WATCH:]
+    oracle = {}
+    client = await DbeelClient.from_seed_nodes(
+        [("127.0.0.1", plan["port"])], pipeline_window=CLIENT_INFLIGHT // 4)
+    # Count the Overloaded answers the walk retried, by step.
+    sheds = [0]
+    real_send = client._send_to
+
+    async def counted(host, port, request):
+        try:
+            return await real_send(host, port, request)
+        except errors.Overloaded:
+            sheds[0] += 1
+            raise
+
+    client._send_to = counted
+
+    async def step(name, n, coro_fn):
+        before = sheds[0]
+        t0 = time.perf_counter()
+        res = await coro_fn()
+        out[name] = {"n": n, "s": time.perf_counter() - t0,
+                     "retries": sheds[0] - before, **res}
+
+    async def fan(items, fn):
+        """``fn(item)`` over ``items`` with CLIENT_INFLIGHT in flight."""
+        results = {}
+
+        async def worker():
+            for i, item in it:
+                results[i] = await fn(item)
+
+        it = iter(enumerate(items))
+        await asyncio.gather(*(worker() for _ in range(CLIENT_INFLIGHT)))
+        return [results[i] for i in range(len(items))]
+
+    try:
+        col = None
+
+        async def create():
+            nonlocal col
+            col = await client.create_collection("a", replication_factor=1)
+            return {"bad": 0}
+
+        await step("async_create", 1, create)
+
+        async def sets():
+            await fan(list(zip(akeys, adocs)), lambda kd: col.set(*kd))
+            oracle.update(zip(akeys, adocs))
+            return {"bad": 0}
+
+        await step("async_set", n_ops, sets)
+
+        async def gets():
+            got = await fan(akeys, col.get)
+            return {"bad": sum(g != d for g, d in zip(got, adocs))}
+
+        await step("async_get", n_ops, gets)
+
+        async def multi():
+            for i in range(0, CLIENT_MULTI, CLIENT_BATCH):
+                await col.multi_set(list(zip(mkeys[i:i + CLIENT_BATCH],
+                                             mdocs[i:i + CLIENT_BATCH])))
+            bad = 0
+            for i in range(0, CLIENT_MULTI, CLIENT_BATCH):
+                got = await col.multi_get(mkeys[i:i + CLIENT_BATCH])
+                bad += sum(g != d for g, d in
+                           zip(got, mdocs[i:i + CLIENT_BATCH]))
+            oracle.update(zip(mkeys, mdocs))
+            return {"bad": bad}
+
+        await step("async_multi", 2 * CLIENT_MULTI, multi)
+        want = _where_rows(oracle)
+
+        async def scan():
+            rows = [[k, d] async for k, d in col.scan(filter=_scan_where())]
+            return {"rows": len(rows), "bad": int(
+                _rows_digest(codec, rows) != _rows_digest(codec, want))}
+
+        await step("async_scan", 1, scan)
+
+        async def count():
+            n = await col.count(filter=_scan_where())
+            total = await col.count(filter=_scan_where(),
+                                    aggregate={"op": "sum", "field": "v"})
+            return {"count": n, "sum": total, "bad": int(
+                n != len(want) or total != sum(d["v"] for _k, d in want))}
+
+        await step("async_count", 2, count)
+
+        async def atomic():
+            k = akeys[0]
+            new = {"v": 2, "p": b"cas"}
+            bad = 0
+            try:
+                await col.cas(k, new, expect_value={"v": 0})
+                bad += 1
+            except errors.CasConflict:
+                pass
+            await col.cas(k, new, expect_value=oracle[k])
+            bad += int(await col.get(k) != new)
+            for _ in range(3):
+                await col.rmw("rmw-counter", lambda v: (v or 0) + 1)
+            bad += int(await col.get("rmw-counter") != 3)
+            # Four keys on the arc of akeys[1]: one batch, one arc.
+            def arc(k):
+                return client._shards_for_key(
+                    hash_bytes(codec.packb(k)), 1)[0].hash
+
+            same = list(itertools.islice(
+                (k for k in akeys[1:] if arc(k) == arc(akeys[1])), 4))
+            await col.atomic_batch(
+                [{"key": same[0], "value": {"v": 3}, "expect_value":
+                  oracle[same[0]]}]
+                + [{"key": k, "delete": True} for k in same[1:]])
+            bad += int(await col.get(same[0]) != {"v": 3})
+            for k in same[1:]:
+                try:
+                    await col.get(k)
+                    bad += 1
+                except errors.KeyNotFound:
+                    pass
+            return {"bad": bad}
+
+        await step("async_atomic", 12, atomic)
+
+        async def watch():
+            w = col.watcher(wait_ms=100)
+            await w.next_events()
+            await fan(list(zip(wkeys, wdocs)), lambda kd: col.set(*kd))
+            seen = []
+            deadline = time.perf_counter() + 60
+            while len(seen) < CLIENT_WATCH and time.perf_counter() < deadline:
+                seen += [(k, v) for k, v, _ts, _fl in await w.next_events()]
+            by_key = {}
+            for k, v in seen:
+                by_key.setdefault(k, []).append(v)
+            want_w = dict(zip(wkeys, wdocs))
+            bad = sum(by_key.get(k) != [d] for k, d in want_w.items())
+            bad += sum(k not in want_w for k in by_key)
+            return {"events": len(seen), "chunks": w.chunks,
+                    "dup_flagged": w.dup_flagged,
+                    "monotonicity_violations": w.monotonicity_violations,
+                    "bad": bad + w.dup_flagged + w.monotonicity_violations}
+
+        await step("async_watch", CLIENT_WATCH, watch)
+    finally:
+        client.close()
+    return len(want)
+
+
+def client_load_main(plan_path) -> int:
+    """Phase 13's load, in its own process: the port's two clients, one
+    JSON line of what they measured and of what this process imported."""
+    import pickle
+
+    import numpy as np
+
+    with open(plan_path, "rb") as f:
+        plan = pickle.load(f)
+
+    from dbeel_tpu_torch.client import DbeelClientSync
+    from dbeel_tpu_torch.utils import msgpack_codec as codec
+
+    out = {}
+    out["native_rows"] = _load_native(np, codec, plan, out)
+    out["async_rows"] = asyncio.run(_load_async(np, plan, out))
+    t0 = time.perf_counter()
+    sync = DbeelClientSync([("127.0.0.1", plan["port"])])
+    try:
+        stats = sync.get_stats()
+    finally:
+        sync._client.close()
+        sync.close()
+    out["sync_stats"] = {"n": 1, "s": time.perf_counter() - t0,
+                         "shard": stats["shard"],
+                         "bad": int(sorted(stats["collections"]) != ["a", "n"])}
+    import torch
+
+    out["imports"] = sorted(
+        m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "dbeel_tpu", "msgpack"))
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    print(json.dumps(out, default=repr))
+    return 0
+
+
+async def _client_leg(torch, seed, n_ops, n_async, device):
+    from dbeel_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    cfg, shards, task = await _start_node(
+        os.path.join(WORK, "client", "node"), device)
+    t_start = time.perf_counter() - t0
+    plan = {"seed": seed, "port": cfg.db_port(0), "n_ops": n_ops,
+            "n_async": n_async,
+            "ports": [cfg.db_port(i) for i in range(NODE_SHARDS)]}
+    # Run node_client: every count zeroed just before the load, read
+    # after its last answer.
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with _device_trace(torch, device) as prof:
+        got = await _run_load(
+            plan, os.path.join(WORK, "client", "plan"), "--client-load",
+            site_packages=True)
+        wall = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    tables = [len(s.collections["n"].tree.sstable_indices_and_sizes())
+              for s in shards]
+    t_stop = await _stop_node(cfg, shards, task)
+    busy_ms = _device_busy(prof)[0] if prof is not None else None
+    return dict(got=got, counts=counts, wall=wall, busy_ms=busy_ms,
+                t_start=t_start, t_stop=t_stop, tables=tables)
+
+
+def phase_client(torch, seed=7, n_ops=CLIENT_OPS, n_async=CLIENT_ASYNC_OPS,
+                 device="cuda"):
+    """A 4-shard port node driven by the port's own clients from a child
+    process: ``n_ops`` keys through the C client, ``n_async`` through the
+    async one.  Returns the launch counts of the run."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(WORK, "client"))
+    leg = asyncio.run(_client_leg(torch, seed, n_ops, n_async, device))
+    got = leg["got"]
+    imported = got.pop("imports")
+    if imported:
+        raise AssertionError(f"client load imported {imported}")
+    if got.pop("cuda_initialized"):
+        raise AssertionError("client load initialised CUDA")
+    native_rows, async_rows = got.pop("native_rows"), got.pop("async_rows")
+    bad = {name: step["bad"] for name, step in got.items() if step["bad"]}
+    if bad:
+        raise AssertionError(f"client: answers differ from the oracle: "
+                             f"{bad}; {json.dumps(got, default=repr)[:3000]}")
+    dev_type = torch.device(device).type
+    strategies = got["native_stats"]["strategies"]
+    if not all(s.startswith(f"device on {dev_type}") for s in strategies):
+        raise AssertionError(f"client: get_stats names {strategies}")
+    secs = time.perf_counter() - t0
+    rates = {name: round(step["n"] / step["s"]) for name, step in got.items()
+             if step["s"] > 0}
+    retries = {name: step["retries"] for name, step in got.items()
+               if "retries" in step}
+    busy = (f"{leg['busy_ms']:.2f} ms of {leg['wall'] * 1e3:.1f} ms = "
+            f"{leg['busy_ms'] / (leg['wall'] * 1e3):.5f}"
+            if leg["busy_ms"] is not None else "not traced (cpu)")
+    log(f"client: {NODE_SHARDS}-shard node started in {leg['t_start']:.2f}s; "
+        f"load {leg['wall']:.2f}s (one child: NativeDbeelClient on n, "
+        f"DbeelClient with {CLIENT_INFLIGHT} in flight on a); rates/s "
+        f"{json.dumps(rates)}; seconds "
+        f"{ {n: round(s['s'], 3) for n, s in got.items()} }; retries after "
+        f"Overloaded (C: the node's answers in the step) {retries}; "
+        f"pipe_set failed "
+        f"{got['native_pipe_set']['failed']}; scans {native_rows} rows (C) "
+        f"and {async_rows} rows (async) equal to the oracle; watch "
+        f"{got['async_watch']['events']} events in "
+        f"{got['async_watch']['chunks']} chunks; tables by shard "
+        f"{leg['tables']}; strategies {strategies}; card busy {busy}; "
+        f"launches {leg['counts']}; stopped in {leg['t_stop']:.2f}s")
+    shutil.rmtree(os.path.join(WORK, "client"))
+    log(f"client: {secs:.1f}s")
+    return {"node_client": leg["counts"]}
+
+
+def check_client_launches(runs):
+    """The node's compaction loops merge on K3 or K4 (where prefixes
+    tie), the clients' filtered scans and counts evaluate on K8a and
+    K8b, and nothing else launches."""
+    got = runs["node_client"]
+    rest = {k: v for k, v in got.items()
+            if k not in ("K3", "K4", "K8a", "K8b")}
+    if (not (got.get("K3", 0) + got.get("K4", 0)) or not got.get("K8a")
+            or not got.get("K8b") or any(rest.values())):
+        raise AssertionError(f"node_client launches {got}")
+
+
+# ----------------------------------------------------------------------
 
 
 PHASES = ("kernels", "compaction", "lsm", "shards", "scan", "mesh", "arena",
-          "index", "planes", "serving", "node")
+          "index", "planes", "serving", "node", "client")
 
 
 def main(argv=None) -> int:
@@ -4626,12 +5130,17 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--seed", type=int, default=7,
-        help="seed of the node phase's keys and documents (default 7)",
+        help="seed of the node and client phases' keys and documents "
+             "(default 7)",
     )
     parser.add_argument("--node-load", help=argparse.SUPPRESS)
+    parser.add_argument("--client-load", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.node_load:
         return node_load_main(args.node_load)
+    if args.client_load:
+        sys.path.insert(0, ROOT)
+        return client_load_main(args.client_load)
     only = [p for p in args.only.split(",") if p]
     if not set(only) <= set(PHASES):
         parser.error(f"unknown phase in {args.only!r}")
@@ -4716,6 +5225,10 @@ def main(argv=None) -> int:
             node_runs = phase_node(torch, np, seed=args.seed)
             check_node_launches(node_runs)
             runs.update(node_runs)
+        if "client" in only:
+            client_runs = phase_client(torch, seed=args.seed)
+            check_client_launches(client_runs)
+            runs.update(client_runs)
         log(f"launches by run: {json.dumps(runs, sort_keys=True)}")
         for row in kernels:
             # A kernel folded into another's launch has no counter.

@@ -18,7 +18,8 @@ binds what it calls:
 * the k-way merge, ``NativeMergeStrategy`` below, with its chunked and
   overlapped file IO and the page-CRC kernel of the inline sidecar;
 * the serving data plane (``dbeel_dp_*``, ``server/dataplane.py``) and
-  the quorum fan-out engine (``dbeel_qf_*``, ``cluster/native_fanout.py``).
+  the quorum fan-out engine (``dbeel_qf_*``, ``cluster/native_fanout.py``);
+* the C smart client (``dbeel_cli_*``, ``client/native_client.py``).
 
 The library must carry every one of these symbols (the current ABI); a
 library without them is not used.
@@ -82,7 +83,7 @@ _IO_CHUNK_BYTES = 16 << 20
 
 _vp, _cp = ctypes.c_void_p, ctypes.c_char_p
 _int, _i32, _i64 = ctypes.c_int, ctypes.c_int32, ctypes.c_int64
-_u32, _u64 = ctypes.c_uint32, ctypes.c_uint64
+_u16, _u32, _u64 = ctypes.c_uint16, ctypes.c_uint32, ctypes.c_uint64
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(_u32)
 _u64p = ctypes.POINTER(_u64)
@@ -235,6 +236,60 @@ _PROTOTYPES = {
                _u32, _u32p]
     ),
     "dbeel_qf_fanout_ops": (_u64, [_vp]),
+    # The C smart client (client/native_client.py): a handle per client;
+    # keys and values are msgpack bytes with their lengths; (consistency,
+    # rf) route each op; a buffer and its capacity take each answer.
+    "dbeel_cli_new": (_vp, [_cp, _u16]),
+    "dbeel_cli_free": (None, [_vp]),
+    "dbeel_cli_sync": (_int, [_vp]),
+    "dbeel_cli_ring_size": (_u64, [_vp]),
+    "dbeel_cli_last_error": (_cp, [_vp]),
+    # (client, op deadline ms, backoff base ms, backoff cap ms)
+    "dbeel_cli_set_retry": (None, [_vp, _u32, _u32, _u32]),
+    "dbeel_cli_create_collection": (_int, [_vp, _cp, _u32]),
+    "dbeel_cli_create_collection_indexed": (_int, [_vp, _cp, _u32, _cp]),
+    "dbeel_cli_set": (_int, [_vp, _cp, _u8p, _u32, _u8p, _u32, _int, _u32]),
+    "dbeel_cli_delete": (_int, [_vp, _cp, _u8p, _u32, _int, _u32]),
+    # (client, collection, key, value, delete, expected value, expect
+    # absent, expected ts or -1, consistency, rf)
+    "dbeel_cli_cas": (
+        _int, [_vp, _cp, _u8p, _u32, _u8p, _u32, _int, _u8p, _u32, _int,
+               _i64, _int, _u32]
+    ),
+    "dbeel_cli_get": (
+        _i64, [_vp, _cp, _u8p, _u32, _int, _u32, _u8p, _u64]
+    ),
+    # The pipelined train: (..., consistency, rf, window).
+    "dbeel_cli_pipe_set": (
+        _int, [_vp, _cp, _u8p, _u32, _u8p, _u32, _int, _u32, _u32]
+    ),
+    "dbeel_cli_pipe_get": (_int, [_vp, _cp, _u8p, _u32, _int, _u32, _u32]),
+    "dbeel_cli_pipe_drain": (_i64, [_vp]),
+    "dbeel_cli_pipe_run": (
+        _i64, [_vp, _cp, _int, _u8p, _u64, _u8p, _u64, _u32, _int, _u32,
+               _u32]
+    ),
+    # (client, ip, port, out buffer, capacity) of the admin reads.
+    **{
+        f"dbeel_cli_{name}": (_i64, [_vp, _cp, _u16, _u8p, _u64])
+        for name in ("get_stats", "cluster_stats", "trace_dump")
+    },
+    "dbeel_cli_set_trace": (None, [_vp, _u64]),
+    "dbeel_cli_set_qos": (None, [_vp, _i32, _cp]),
+    # (client, ip, port, collection, cursor, count only, prefix, limit,
+    # max bytes, spec, out buffer, capacity)
+    "dbeel_cli_scan_chunk": (
+        _i64, [_vp, _cp, _u16, _cp, _u8p, _u32, _int, _u8p, _u32, _u64,
+               _u64, _u8p, _u32, _u8p, _u64]
+    ),
+    # (client, collection, length-prefixed ops, their bytes, count,
+    # consistency, rf, status out[, out buffer, capacity])
+    "dbeel_cli_multi_set": (
+        _i64, [_vp, _cp, _u8p, _u64, _u32, _int, _u32, _u8p]
+    ),
+    "dbeel_cli_multi_get": (
+        _i64, [_vp, _cp, _u8p, _u64, _u32, _int, _u32, _u8p, _u64]
+    ),
 }
 _REQUIRED = tuple(_PROTOTYPES)
 

@@ -13,6 +13,7 @@ field masked by name.  Equality is exact everywhere else."""
 import asyncio
 import os
 import struct
+from types import SimpleNamespace
 
 import msgpack
 import numpy as np
@@ -20,7 +21,9 @@ import pytest
 
 from dbeel_tpu import errors as jerrors
 from dbeel_tpu import query as jquery
-from dbeel_tpu.client import Consistency, DbeelClient
+from dbeel_tpu import client as jclient
+from dbeel_tpu_torch import client as tclient
+from dbeel_tpu_torch import errors as terrors
 from dbeel_tpu.flow_events import FlowEvent as JFlowEvent
 from dbeel_tpu_torch.flow_events import FlowEvent as TFlowEvent
 
@@ -37,6 +40,10 @@ from torch_shards import (  # noqa: F401
 )
 
 FLOW = {"ref": JFlowEvent, "port": TFlowEvent}
+# The clients of the client cases: the reference's and the port's, each
+# raising its own package's errors.
+CLIENTS = {"ref": SimpleNamespace(client=jclient, errors=jerrors),
+           "port": SimpleNamespace(client=tclient, errors=terrors)}
 
 
 def frame(req) -> bytes:
@@ -378,66 +385,71 @@ def test_interpreted_overload_answers_equal_the_armed_frames(tmp_path):
 # ---------------------------------------------------------------------
 
 
-async def _client(node):
-    return await DbeelClient.from_seed_nodes([node.db_address])
+async def _client(node, cl="ref"):
+    return await CLIENTS[cl].client.DbeelClient.from_seed_nodes(
+        [node.db_address])
 
 
-async def _collection_crud_and_errors(pkg, d):
+async def _collection_crud_and_errors(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     node = await Node(pkg, node_config(pkg, d)).start()
     try:
-        client = await _client(node)
+        client = await _client(node, cl)
         await client.create_collection("users")
-        with pytest.raises(jerrors.CollectionAlreadyExists):
+        with pytest.raises(E.CollectionAlreadyExists):
             await client.create_collection("users")
         await client.drop_collection("users")
-        with pytest.raises(jerrors.CollectionNotFound):
+        with pytest.raises(E.CollectionNotFound):
             await client.collection("users").get("niels")
-        with pytest.raises(jerrors.CollectionNotFound):
+        with pytest.raises(E.CollectionNotFound):
             await client.drop_collection("users")
     finally:
         await node.stop()
 
 
-async def _set_get_delete(pkg, d):
+async def _set_get_delete(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     node = await Node(pkg, node_config(pkg, d)).start()
     try:
-        client = await _client(node)
+        client = await _client(node, cl)
         col = await client.create_collection("docs")
         await col.set("key", {"name": "tony", "age": 42})
         assert await col.get("key") == {"name": "tony", "age": 42}
         await col.set("key", [1, 2, 3])
         assert await col.get("key") == [1, 2, 3]
-        with pytest.raises(jerrors.KeyNotFound):
+        with pytest.raises(E.KeyNotFound):
             await col.get("missing")
         await col.delete("key")
-        with pytest.raises(jerrors.KeyNotFound):
+        with pytest.raises(E.KeyNotFound):
             await col.get("key")
     finally:
         await node.stop()
 
 
-async def _persistence_across_restart(pkg, d):
+async def _persistence_across_restart(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     cfg = node_config(pkg, d)
     node = await Node(pkg, cfg).start()
     try:
-        col = await (await _client(node)).create_collection("docs")
+        col = await (await _client(node, cl)).create_collection("docs")
         for i in range(100):
             await col.set(f"key{i}", {"i": i})
     finally:
         await node.stop()
     node = await Node(pkg, cfg).start()
     try:
-        col = (await _client(node)).collection("docs")
+        col = (await _client(node, cl)).collection("docs")
         for i in range(100):
             assert await col.get(f"key{i}") == {"i": i}
     finally:
         await node.stop()
 
 
-async def _multi_collection_isolation(pkg, d):
+async def _multi_collection_isolation(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     node = await Node(pkg, node_config(pkg, d)).start()
     try:
-        client = await _client(node)
+        client = await _client(node, cl)
         a = await client.create_collection("a")
         b = await client.create_collection("b")
         await a.set("k", "from-a")
@@ -445,17 +457,18 @@ async def _multi_collection_isolation(pkg, d):
         assert await a.get("k") == "from-a"
         assert await b.get("k") == "from-b"
         await a.delete("k")
-        with pytest.raises(jerrors.KeyNotFound):
+        with pytest.raises(E.KeyNotFound):
             await a.get("k")
         assert await b.get("k") == "from-b"
     finally:
         await node.stop()
 
 
-async def _multi_shard_routing(pkg, d):
+async def _multi_shard_routing(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     node = await Node(pkg, node_config(pkg, d), n_shards=2).start()
     try:
-        col = await (await _client(node)).create_collection("docs")
+        col = await (await _client(node, cl)).create_collection("docs")
         for i in range(64):
             await col.set(f"key{i}", i)
         for i in range(64):
@@ -466,10 +479,11 @@ async def _multi_shard_routing(pkg, d):
         await node.stop()
 
 
-async def _get_stats(pkg, d):
+async def _get_stats(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     node = await Node(pkg, node_config(pkg, d)).start()
     try:
-        client = await _client(node)
+        client = await _client(node, cl)
         col = await client.create_collection("s")
         await col.set("k", 1)
         raw = await client._send_to(*node.db_address, {"type": "get_stats"})
@@ -483,16 +497,17 @@ async def _get_stats(pkg, d):
         await node.stop()
 
 
-async def _collection_discovery_after_restart(pkg, d):
+async def _collection_discovery_after_restart(pkg, d, cl="ref"):
+    E = CLIENTS[cl].errors
     cfg = node_config(pkg, d)
     node = await Node(pkg, cfg).start()
     try:
-        await (await _client(node)).create_collection("rediscovered")
+        await (await _client(node, cl)).create_collection("rediscovered")
     finally:
         await node.stop()
     node = await Node(pkg, cfg).start()
     try:
-        meta = await (await _client(node)).get_cluster_metadata()
+        meta = await (await _client(node, cl)).get_cluster_metadata()
         assert ("rediscovered", 1) in meta.collections
     finally:
         await node.stop()
@@ -504,10 +519,18 @@ CLIENT_CASES = {f.__name__[1:]: f for f in (
     _multi_shard_routing, _get_stats, _collection_discovery_after_restart)}
 
 
-@pytest.mark.parametrize("pkg", ["ref", "port"])
-@pytest.mark.parametrize("case", list(CLIENT_CASES))
-def test_reference_client(tmp_path, case, pkg):
-    run(CLIENT_CASES[case](pkg, str(tmp_path / "db")))
+# Each case on each package's node, with the reference's client (the
+# ids the cases had before the port had a client) and with the port's.
+CLIENT_PARAMS = [
+    pytest.param(case, pkg, cl, id=f"{case}-{pkg}" + (
+        "" if cl == "ref" else "-port_client"))
+    for cl in ("ref", "port") for case in CLIENT_CASES
+    for pkg in ("ref", "port")]
+
+
+@pytest.mark.parametrize("case,pkg,client", CLIENT_PARAMS)
+def test_reference_client(tmp_path, case, pkg, client):
+    run(CLIENT_CASES[case](pkg, str(tmp_path / "db"), client))
 
 
 # ---------------------------------------------------------------------
@@ -535,11 +558,12 @@ async def _outcome(coro):
     """A client call's value, or its error kind."""
     try:
         return ("ok", await coro)
-    except jerrors.DbeelError as e:
+    except (jerrors.DbeelError, terrors.DbeelError) as e:
         return ("err", type(e).__name__)
 
 
-async def _rf3_ops(pkg, d):
+async def _rf3_ops(pkg, d, cl="ref"):
+    Consistency = CLIENTS[cl].client.Consistency
     m = PKGS[pkg]
     flow = FLOW[pkg]
     cfg0 = node_config(pkg, os.path.join(d, "n0"), name="n0")
@@ -552,7 +576,7 @@ async def _rf3_ops(pkg, d):
                 pkg, os.path.join(d, f"n{i}"), name=f"n{i}",
                 extra=("--seed-nodes", nodes[0].seed))).start())
             await asyncio.wait_for(alive, 10)
-        client = await _client(nodes[0])
+        client = await _client(nodes[0], cl)
         created = [n.shards[0].flow.subscribe(flow.COLLECTION_CREATED)
                    for n in nodes]
         col = await client.create_collection("r", replication_factor=3)
@@ -627,8 +651,17 @@ def test_rf3_answers_equal(tmp_path):
     """Quorum sets and gets at each consistency level, a digest read,
     read repair, a CAS conflict and an atomic batch give the same
     answers and error kinds on three port nodes as on three reference
-    nodes."""
-    got = {pkg: run(_rf3_ops(pkg, str(tmp_path / pkg)))
+    nodes, through the reference's client."""
+    _rf3_answers_equal(tmp_path, "ref")
+
+
+def test_rf3_answers_equal_port_client(tmp_path):
+    """The same, through the port's client."""
+    _rf3_answers_equal(tmp_path, "port")
+
+
+def _rf3_answers_equal(tmp_path, cl):
+    got = {pkg: run(_rf3_ops(pkg, str(tmp_path / pkg), cl))
            for pkg in ("ref", "port")}
     assert got["ref"] == got["port"]
     assert got["port"] == [

@@ -33,7 +33,9 @@ for name in ("dbeel_tpu_torch.server.coalescer",
              "dbeel_tpu_torch.storage.native",
              "dbeel_tpu_torch.storage.wal",
              "dbeel_tpu_torch.storage.secondary_index",
-             "dbeel_tpu_torch.storage.uring"):
+             "dbeel_tpu_torch.storage.uring",
+             "dbeel_tpu_torch.client",
+             "dbeel_tpu_torch.client.native_client"):
     assert name in names, name
 import chip_smoke  # noqa: F401  (its top-level imports)
 bad = sorted(m for m in sys.modules

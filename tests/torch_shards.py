@@ -333,6 +333,7 @@ class Node:
             await s.stop()
         await asyncio.wait_for(
             asyncio.gather(*self.tasks, return_exceptions=True), timeout)
+        await self._reap_background()
         await reap_reference_waiters()
 
     async def crash(self):
@@ -344,7 +345,22 @@ class Node:
         await asyncio.gather(*self.tasks, return_exceptions=True)
         for s in self.shards:
             s.close()
+        await self._reap_background()
         await reap_reference_waiters()
+
+    async def _reap_background(self):
+        """A peer's goodbye gossip that lands while a shard shuts down
+        spawns its handler (and the handler its expiry timer) after
+        ``run_shard``'s last sweep of the shard's background tasks, in
+        both packages: cancel and await what is left."""
+        while True:
+            left = [t for s in self.shards
+                    for t in list(s._background_tasks) if not t.done()]
+            if not left:
+                return
+            for t in left:
+                t.cancel()
+            await asyncio.gather(*left, return_exceptions=True)
 
     @property
     def db_address(self):
@@ -361,3 +377,56 @@ def node_config(pkg, d, base=None, name="n0", extra=(), **overrides):
     base = port_block() if base is None else base
     return PKGS[pkg].config.parse_args(
         node_args(d, base, name, *extra)).replace(**overrides)
+
+
+# ---------------------------------------------------------------------
+# The twin of tests/harness.py, on port_block()'s ports
+# ---------------------------------------------------------------------
+
+
+def make_config(tmp_dir, pkg="port", **kw):
+    """harness.make_config on a fresh ``port_block()``: db ports from
+    its first port, peer ports from + 5, gossip on + 10 (up to 5
+    shards a node).  ``pkg`` names the package whose ``Config`` it is;
+    ``ClusterNode`` runs that package's node."""
+    base = port_block()
+    defaults = dict(
+        name="dbeel-test",
+        dir=f"{tmp_dir}/db",
+        port=base,
+        remote_shard_port=base + 5,
+        gossip_port=base + 10,
+        failure_detection_interval_ms=50,
+        memtable_capacity=64,
+    )
+    defaults.update(kw)
+    return PKGS[pkg].config.Config(**defaults)
+
+
+def next_node_config(cfg, offset, tmp_dir):
+    """harness.next_node_config: the name and directory of an extra
+    node of ``cfg``'s package, on a fresh block of its own."""
+    base = port_block()
+    return cfg.replace(
+        name=f"{cfg.name}-n{offset}",
+        dir=f"{tmp_dir}/db-n{offset}",
+        port=base,
+        remote_shard_port=base + 5,
+        gossip_port=base + 10,
+    )
+
+
+class ClusterNode(Node):
+    """harness.ClusterNode over ``Node``: the package is the config's
+    (the port's nodes run on the CPU)."""
+
+    def __init__(self, config, num_shards=1):
+        pkg = "port" if isinstance(config, tconfig.Config) else "ref"
+        super().__init__(pkg, config, num_shards)
+
+    def flow_event(self, shard_index, event):
+        return self.shards[shard_index].flow.subscribe(event)
+
+    @property
+    def seed_address(self):
+        return self.seed
